@@ -1,0 +1,413 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the cusz codec (src/repro_torch) on one
+NVIDIA card, and hold every CUDA kernel of its path against its plain
+PyTorch version.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+  env       card name and power limit (nvidia-smi), torch and CUDA versions
+  build     nvcc builds the six kernels for sm_90a; seconds and the
+            ptxas register / shared-memory report
+  kernel:*  each kernel at the main path's shapes on a NYX-like 512^3
+            field, compared exactly with its plain version on the card;
+            kernel, plain and (where one PyTorch call computes the same
+            function) library times from CUDA events
+  golden    the committed cusz v2 fixture re-encoded on the card, byte for
+            byte
+  quality   the six small scidata fields: ratios equal the reference's
+            BENCH_quality.json cusz rows, error bound held
+  main:*    encode -> pack -> decode at the paper's Table 2 sizes (HACC
+            1-D 280,953,867, CESM 1800x3600, NYX 512^3) at eb=1e-4 valrel,
+            with every kernel's launch count read around the phase
+
+then the `{"kernels": [...]}` summary and, last, the device line.  Any
+failed check raises, so the script exits nonzero; without a CUDA device it
+exits 2 before printing any result.  The full record also goes to
+chiprun_out/chip_smoke.json.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s fp32 (non-tensor)
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+# the cusz rows of BENCH_quality.json (ratio = raw bytes / stored bytes)
+QUALITY_RATIOS = {"hacc": 9.709, "cesm": 4.844, "hurricane": 5.334,
+                  "hurricane_cloud": 11.692, "nyx": 14.447, "qmcpack": 4.122}
+
+# kernel name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "lorenzo.dualquant": ("src/repro_torch/csrc/lorenzo.cu",
+                          "src/repro/kernels/lorenzo/kernel.py:76"),
+    "histogram": ("src/repro_torch/csrc/histogram.cu",
+                  "src/repro/kernels/histogram/kernel.py:41"),
+    "encode": ("src/repro_torch/csrc/encode.cu",
+               "src/repro/kernels/encode/kernel.py:36"),
+    "deflate": ("src/repro_torch/csrc/deflate.cu",
+                "src/repro/kernels/deflate/kernel.py:69"),
+    "inflate": ("src/repro_torch/csrc/inflate.cu",
+                "src/repro/kernels/inflate/kernel.py:103"),
+    "lorenzo.reverse": ("src/repro_torch/csrc/lorenzo.cu",
+                        "src/repro/kernels/lorenzo/kernel.py:96"),
+}
+
+RECORD: list = []
+
+
+def emit(obj: dict) -> None:
+    RECORD.append(obj)
+    print(json.dumps(obj), flush=True)
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
+    """Mean milliseconds per call from CUDA events, after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float):
+    """Least time the card could take: the larger of bytes over the memory
+    rate and operations over the scalar rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_diff(torch, a, b) -> float:
+    """Largest |a - b| (integers compared as int64, floats as float64)."""
+    if a.dtype == torch.uint32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def phase_env(torch) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+    return smi
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    _build.lib()
+    info = _build.build_info
+    ptxas = [ln.strip() for ln in str(info["ptxas"]).splitlines()
+             if "registers" in ln or "Compiling entry" in ln
+             or ln.startswith("==")]
+    emit({"phase": "build", "seconds": info["seconds"],
+          "cached": info["cached"], "library": info["path"],
+          "ptxas": ptxas})
+
+
+def phase_kernels(torch, dev) -> dict:
+    """Every kernel against its plain version at the NYX 512^3 shapes."""
+    from repro_torch.core import compressor as CZ
+    from repro_torch.core import dualquant as dq
+    from repro_torch.core import huffman as hf
+    from repro_torch.data import scidata
+    from repro_torch.kernels.deflate import ops as deflate_ops
+    from repro_torch.kernels.encode import ops as encode_ops
+    from repro_torch.kernels.histogram import ops as hist_ops
+    from repro_torch.kernels.inflate import ops as inflate_ops
+    from repro_torch.kernels.lorenzo import ops as lorenzo_ops
+    from repro_torch.kernels.lorenzo import ref as lorenzo_ref
+
+    cfg = CZ.CompressorConfig(eb=1e-4, eb_mode="valrel")
+    x = scidata.nyx_like((512, 512, 512), seed=3, device=dev)
+    eb = CZ.resolve_eb(cfg, x)
+    block = cfg.block_for(3)
+    xb = dq.block_split(dq.pad_to_blocks(x, block), block)
+    del x
+    n, nbins = xb.numel(), cfg.nbins
+    out = {}
+
+    def record(name, diff, ms, plain_ms, nbytes, ops, library_ms=None,
+               **extra):
+        b, by = bound_ms(nbytes, ops)
+        out[name] = {"name": name, "route": "cuda",
+                     "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                     "max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by, "library_ms": library_ms}
+        emit({"phase": f"kernel:{name}", "n": n, "equal": diff == 0.0,
+              **out[name], **extra})
+        require(diff == 0.0, f"{name} kernel differs from its plain version "
+                f"by {diff}")
+
+    # 1. fused dual-quant: ~20 scalar ops per value (multiply, round, the
+    # 8-term stencil, the cap test)
+    codes, delta = lorenzo_ops.dualquant_blocks_cuda(xb, eb, nbins)
+    pc, pd = lorenzo_ref.dualquant_blocks_ref(xb, eb, nbins)
+    torch.cuda.synchronize()
+    diff = max(max_diff(torch, codes, pc), max_diff(torch, delta, pd))
+    del pc, pd
+    record("lorenzo.dualquant", diff,
+           cuda_ms(torch, lambda: lorenzo_ops.dualquant_blocks_cuda(
+               xb, eb, nbins), 10),
+           cuda_ms(torch, lambda: lorenzo_ref.dualquant_blocks_ref(
+               xb, eb, nbins), 3),
+           12 * n, 20 * n, block=list(block), eb=eb)
+    del xb
+
+    # 2. histogram: 1 increment per code
+    flat = codes.reshape(-1)
+    hist = hist_ops.histogram_cuda(codes, nbins)
+    diff = max_diff(torch, hist, hist_ops.ref.histogram_ref(codes, nbins))
+    record("histogram", diff,
+           cuda_ms(torch, lambda: hist_ops.histogram_cuda(codes, nbins), 10),
+           cuda_ms(torch, lambda: hist_ops.ref.histogram_ref(codes, nbins), 3),
+           4 * n + 4 * nbins, n,
+           library_ms=cuda_ms(torch, lambda: torch.bincount(
+               flat, minlength=nbins), 10))
+
+    # the Huffman tree between the kernels runs on a host copy (its own
+    # stage time, host clock)
+    t0 = time.perf_counter()
+    lengths = hf.codeword_lengths(hist)
+    cb = hf.canonical_codebook(lengths).to(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "huffman_tree_host", "seconds": time.perf_counter() - t0,
+          "max_len": int(cb.max_len)})
+
+    # 3. encode: 1 gather per symbol
+    cw, bw = encode_ops.encode_cuda(codes, cb)
+    pcw, pbw = encode_ops.ref.encode_ref(codes, cb)
+    diff = max(max_diff(torch, cw, pcw), max_diff(torch, bw, pbw))
+    del pcw, pbw
+    table = torch.stack([cb.codes.view(torch.int32), cb.lengths], 1)
+    record("encode", diff,
+           cuda_ms(torch, lambda: encode_ops.encode_cuda(codes, cb), 10),
+           cuda_ms(torch, lambda: encode_ops.ref.encode_ref(codes, cb), 3),
+           12 * n + 8 * nbins, n,
+           library_ms=cuda_ms(torch, lambda: torch.index_select(
+               table, 0, flat), 10))
+
+    # 4. deflate: ~15 scalar ops per symbol (scan, shifts, two ORs)
+    chunk, sub = cfg.chunk_size, cfg.sub_size
+    words, bits, gbits, gsyms = deflate_ops.deflate_cuda(cw, bw, chunk, sub)
+    plain = deflate_ops.ref.deflate_ref(cw, bw, chunk, sub)
+    diff = max(max_diff(torch, a, b) for a, b in
+               zip((words, bits, gbits, gsyms), plain))
+    del plain
+    nc = words.shape[0]
+    record("deflate", diff,
+           cuda_ms(torch, lambda: deflate_ops.deflate_cuda(cw, bw, chunk,
+                                                           sub), 10),
+           cuda_ms(torch, lambda: deflate_ops.ref.deflate_ref(cw, bw, chunk,
+                                                              sub), 2),
+           8 * n + 4 * nc * chunk + 4 * nc + 8 * gbits.numel(), 15 * n)
+    del cw, bw
+
+    # 5. inflate: ~45 scalar ops per symbol (33 compares, the table walk);
+    # bytes are the used stream words, not the dense buffer
+    tbl = hf.build_decode_table(cb.lengths)
+    starts = torch.arange(nc, device=dev, dtype=torch.int64) * chunk
+    n_valid = (n - starts).clamp(0, chunk).to(torch.int32)
+    dec = inflate_ops.inflate_cuda(words, n_valid, gbits, tbl, sub)
+    pdec = inflate_ops.ref.inflate_gap_ref(words, n_valid, gbits, tbl, sub)
+    diff = max_diff(torch, dec, pdec)
+    require(torch.equal(dec.reshape(-1)[:n], flat),
+            "inflate does not give back the encoded codes")
+    del pdec
+    used_words = int(((bits.long() + 31) // 32).sum())
+    record("inflate", diff,
+           cuda_ms(torch, lambda: inflate_ops.inflate_cuda(
+               words, n_valid, gbits, tbl, sub), 10),
+           cuda_ms(torch, lambda: inflate_ops.ref.inflate_gap_ref(
+               words, n_valid, gbits, tbl, sub), 2),
+           4 * used_words + 4 * nc + 4 * gbits.numel() + 4 * nc * chunk,
+           45 * n, stream_bytes=4 * used_words)
+    del words, dec, codes, flat
+
+    # 6. reverse: ~10 scalar ops per value (3 axes x 3 scan steps, dequant)
+    rec = lorenzo_ops.reverse_blocks_cuda(delta, eb)
+    diff = max_diff(torch, rec, lorenzo_ref.reverse_blocks_ref(delta, eb))
+    record("lorenzo.reverse", diff,
+           cuda_ms(torch, lambda: lorenzo_ops.reverse_blocks_cuda(delta, eb),
+                   10),
+           cuda_ms(torch, lambda: lorenzo_ref.reverse_blocks_ref(delta, eb),
+                   3),
+           8 * n, 10 * n)
+    del rec, delta
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_golden(torch) -> None:
+    import numpy as np
+
+    from repro_torch import codecs
+    from repro_torch.core import compressor as CZ
+
+    z = np.load(ROOT / "tests" / "data" / "cusz_v2_golden.npz")
+    hdr = json.loads((ROOT / "tests" / "data" /
+                      "cusz_v2_golden_header.json").read_text())
+    cfg = CZ.CompressorConfig(eb=1e-3, eb_mode="abs", chunk_size=256,
+                              sub_size=64, outlier_frac=1.0)
+    codec = codecs.get("cusz", cfg=cfg)
+    c = codec.encode(z["field"], device="cuda")
+    require(c.payload["words"].is_cuda,
+            "golden encode did not run on the card")
+    c = codec.pack(c)
+    keys = sorted(k for k in z.files if k != "field")
+    bad = [k for k in keys if k not in c.payload
+           or np.asarray(c.payload[k]).dtype != z[k].dtype
+           or not np.array_equal(np.asarray(c.payload[k]), z[k])]
+    same_header = c.header.to_json() == hdr
+    emit({"phase": "golden", "header_equal": same_header,
+          "arrays": len(keys), "arrays_differing": bad})
+    require(same_header and not bad and sorted(c.payload) == keys,
+            f"golden container differs (header equal {same_header}, "
+            f"arrays {bad})")
+
+
+def phase_quality(torch) -> None:
+    from repro_torch import codecs
+    from repro_torch.core import metrics as M
+    from repro_torch.data import scidata
+
+    for name, f in scidata.all_fields(small=True).items():
+        codec = codecs.get("cusz", eb=1e-4, eb_mode="valrel")
+        c = codec.encode(f, device="cuda")
+        rec = codecs.decode(c)
+        ratio = f.nbytes / codec.stored_nbytes(c)
+        held = M.verify_error_bound(torch.from_numpy(f).cuda(), rec,
+                                    c.header.param("eb"))
+        emit({"phase": "quality", "field": name, "ratio": round(ratio, 3),
+              "reference_ratio": QUALITY_RATIOS[name], "bound_held": held,
+              "psnr_db": M.psnr(torch.from_numpy(f).cuda(), rec)})
+        require(round(ratio, 3) == QUALITY_RATIOS[name] and held,
+                f"quality {name}: ratio {ratio:.3f} vs "
+                f"{QUALITY_RATIOS[name]}, bound held {held}")
+
+
+def main_fields(torch, dev):
+    """The paper's Table 2 sizes, one field per block rank."""
+    from repro_torch.data import scidata
+    yield "hacc", lambda: torch.from_numpy(
+        scidata.hacc_like(n=280_953_867, seed=0)).to(dev)
+    yield "cesm", lambda: scidata.cesm_like((1800, 3600), seed=1, device=dev)
+    yield "nyx", lambda: scidata.nyx_like((512, 512, 512), seed=3,
+                                          device=dev)
+
+
+def phase_main(torch, dev) -> dict:
+    from repro_torch import codecs
+    from repro_torch.core import metrics as M
+    from repro_torch.kernels import dispatch
+
+    codec = codecs.get("cusz", eb=1e-4, eb_mode="valrel")
+    fields = [(name, make()) for name, make in main_fields(torch, dev)]
+    torch.cuda.synchronize()
+
+    dispatch.reset_launches()
+    for name, x in fields:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        raw = x.numel() * x.element_size()
+        t0 = time.perf_counter()
+        c = codec.encode(x)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y_dev = codecs.decode(c)
+        torch.cuda.synchronize()
+        t_dec_dev = time.perf_counter() - t0
+        del y_dev
+        t0 = time.perf_counter()
+        p = codec.pack(c)
+        t_pack = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y = codecs.decode(p, device=dev)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        eb = float(c.header.param("eb"))
+        err = M.max_abs_err(x, y)
+        held = M.verify_error_bound(x, y, eb)
+        emit({"phase": f"main:{name}", "shape": list(x.shape),
+              "raw_bytes": raw, "ratio": raw / p.nbytes, "eb": eb,
+              "encode_s": t_enc, "pack_s": t_pack,
+              "decode_device_form_s": t_dec_dev, "decode_packed_s": t_dec,
+              "encode_GBps": raw / t_enc / 1e9,
+              "decode_device_form_GBps": raw / t_dec_dev / 1e9,
+              "decode_packed_GBps": raw / t_dec / 1e9,
+              "max_abs_err": err, "bound_held": held,
+              "n_outliers": int(c.payload["n_outliers"]),
+              "peak_device_bytes": torch.cuda.max_memory_allocated()})
+        require(held and y.shape == x.shape and bool(torch.isfinite(y).all()),
+                f"main path {name}: bound held {held}, shape {tuple(y.shape)}")
+        del c, p, y
+    counts = dispatch.launch_counts()
+    emit({"phase": "main:launches", **counts})
+    missing = [k for k in KERNELS if counts.get(k, 0) == 0]
+    require(not missing, f"kernels never launched on the main path: {missing}")
+    return counts
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    phase_env(torch)
+    phase_build()
+    kernels = phase_kernels(torch, dev)
+    phase_golden(torch)
+    phase_quality(torch)
+    counts = phase_main(torch, dev)
+    summary = [{**kernels[k], "launches": counts[k]} for k in KERNELS]
+    for row in summary:
+        require(all(row[key] is not None and math.isfinite(row[key])
+                    for key in ("ms", "plain_ms", "bound_ms")),
+                f"kernel {row['name']} has no timing")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

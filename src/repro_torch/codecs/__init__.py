@@ -1,0 +1,31 @@
+"""`repro_torch.codecs` — the codec API of the port.
+
+    from repro_torch import codecs
+
+    c = codecs.get("cusz", eb=1e-4, eb_mode="valrel").encode(x)
+    y = codecs.decode(c)                  # the container is self-describing
+
+Registered codecs:
+
+    "cusz"        full dual-quant + canonical-Huffman pipeline (error-
+                  bounded; kernel dispatch via `kernel_impl=`)
+
+Every codec produces a versioned, self-describing `Container` (payload
+dict + static header with codec id/version/dtype/shape/params);
+`pack`/`unpack` switch between the device form and the host storage form,
+and `to_arrays`/`from_arrays` bridge to npz-style field dicts.  Containers
+are byte-compatible with the reference package's, in both directions.
+"""
+from .base import Codec, decode, get, names, register  # noqa: F401
+from .container import (CONTAINER_FORMAT, ChecksumError,  # noqa: F401
+                        Container, Header, check_container, from_arrays,
+                        make_header, payload_crc32, stamp_checksum, to_arrays,
+                        verify_container)
+
+# importing the implementation modules populates the registry
+from . import cusz as cusz                # noqa: F401
+
+__all__ = ["Codec", "Container", "Header", "CONTAINER_FORMAT",
+           "ChecksumError", "check_container", "payload_crc32",
+           "stamp_checksum", "verify_container", "decode", "get", "names",
+           "register", "to_arrays", "from_arrays", "make_header", "cusz"]

@@ -1,0 +1,113 @@
+"""DUAL-QUANTIZATION (cuSZ §3.1) in PyTorch.
+
+The paper's scheme:
+  PREQUANT   d° = round(d / (2·eb))           (the ONLY lossy step)
+  PREDICT    p° = ℓ(d°_neighbors)             (Lorenzo predictor)
+  POSTQUANT  δ° = d° − p°                     (exact integer arithmetic)
+
+On pre-quantized integers the first-order Lorenzo predictor is the
+d-dimensional first-difference operator, and its inverse is an inclusive
+prefix sum along each axis.  Data is split into independent blocks with
+an implicit zero padding layer (§3.1.1), so every block is handled alone
+in both directions.  The fused blocked kernels live in
+`repro_torch.kernels.lorenzo`; this module holds the blocking, the
+code <-> delta mapping and the sparse outlier side channel.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+# Paper defaults (§3.1.1).
+DEFAULT_BLOCKS = {1: (256,), 2: (16, 16), 3: (8, 8, 8)}
+# The larger lane-aligned blocks of the reference (`use_tpu_blocks`); they
+# change container bytes, so the port keeps them.
+TPU_BLOCKS = {1: (4096,), 2: (64, 128), 3: (8, 16, 128)}
+
+
+def padded_shape(shape: Sequence[int], block: Sequence[int]
+                 ) -> Tuple[int, ...]:
+    return tuple(-(-s // b) * b for s, b in zip(shape, block))
+
+
+def pad_to_blocks(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
+    """Edge-replicate pad to a multiple of the block shape (cropped on
+    decompress; replicate keeps the pad region cheap to encode)."""
+    tgt = padded_shape(x.shape, block)
+    for ax, (s, t) in enumerate(zip(x.shape, tgt)):
+        if t != s:
+            idx = torch.arange(t, device=x.device).clamp_(max=s - 1)
+            x = x.index_select(ax, idx)
+    return x
+
+
+def block_split(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
+    """[D1,..,Dn] -> [nb1,..,nbn, b1,..,bn] (block axes last), contiguous."""
+    n = x.ndim
+    if len(block) != n:
+        raise ValueError(f"block {tuple(block)} does not match a {n}-D input")
+    shp = []
+    for s, b in zip(x.shape, block):
+        if s % b:
+            raise ValueError(f"shape {tuple(x.shape)} is not a multiple of "
+                             f"block {tuple(block)}")
+        shp += [s // b, b]
+    perm = list(range(0, 2 * n, 2)) + list(range(1, 2 * n, 2))
+    return x.reshape(shp).permute(perm).contiguous()
+
+
+def block_merge(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
+    """Inverse of block_split."""
+    n = x.ndim // 2
+    perm = []
+    for i in range(n):
+        perm += [i, n + i]
+    x = x.permute(perm)
+    shp = [x.shape[2 * i] * x.shape[2 * i + 1] for i in range(n)]
+    return x.reshape(shp)
+
+
+# ---------------------------------------------------------------------------
+# POSTQUANT code mapping + outliers (paper Algorithm 2).  Code 0 is reserved
+# for OUTLIER; in-cap deltas map to 1..cap-1 around the radius.  Outliers
+# keep their exact integer delta in a sparse side channel.
+# ---------------------------------------------------------------------------
+
+def codes_to_delta(codes: torch.Tensor, cap: int) -> torch.Tensor:
+    """In-cap codes back to deltas; outlier positions (code 0) become 0 and
+    are overwritten by the sparse outlier scatter."""
+    radius = cap // 2
+    return torch.where(codes == 0, 0, codes - radius).to(torch.int32)
+
+
+def extract_outliers(delta_flat: torch.Tensor, in_cap_flat: torch.Tensor,
+                     capacity: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gather up to `capacity` outlier (index, delta) pairs.
+
+    Returns (idx[int32, capacity] filled with n past the outliers,
+    val[int32, capacity], n_outliers).  n_outliers > capacity means
+    overflow (the caller surfaces it)."""
+    n = delta_flat.shape[0]
+    hits = torch.nonzero(~in_cap_flat).flatten()
+    n_out = hits.numel()
+    idx = torch.full((capacity,), n, dtype=torch.int64,
+                     device=delta_flat.device)
+    take = min(n_out, capacity)
+    idx[:take] = hits[:take]
+    val = torch.zeros((capacity,), dtype=torch.int32, device=delta_flat.device)
+    val[:take] = delta_flat[hits[:take]]
+    return (idx.to(torch.int32), val,
+            torch.tensor(n_out, dtype=torch.int32, device=delta_flat.device))
+
+
+def scatter_outliers(delta_flat: torch.Tensor, idx: torch.Tensor,
+                     val: torch.Tensor) -> torch.Tensor:
+    """Write exact outlier deltas back, in place (the caller owns the fresh
+    delta from `codes_to_delta`; a copy would cost 4 B per value).
+    Indices outside [0, n) (the fill) are dropped."""
+    n = delta_flat.shape[0]
+    keep = (idx >= 0) & (idx < n)
+    delta_flat[idx[keep].long()] = val[keep].to(delta_flat.dtype)
+    return delta_flat

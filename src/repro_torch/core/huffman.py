@@ -1,0 +1,356 @@
+"""Customized canonical Huffman coding (cuSZ §3.2) in PyTorch.
+
+Stages (paper Fig. 1, bottom):
+  1. histogram of quant codes                      -> kernels.histogram
+  2. Huffman tree + base codebook                  -> `codeword_lengths`
+  3. canonization                                  -> `canonical_codebook`
+  4. encode (codebook gather) + deflate (bit-pack) -> `encode`, `deflate`
+  decode: gap-array parallel inflate               -> `inflate_gap`
+
+The tree build is a serial loop of up to nbins-1 merges over a 4 KB
+histogram.  It runs on a host copy of the histogram whatever the input
+device: on CUDA tensors a Python loop would launch thousands of tiny
+kernels.  Its output (bitlengths, and the canonical tables derived from
+them) is moved to the data's device once per field.
+
+`encode`, `deflate` and `inflate_gap` here are the plain PyTorch versions
+of the CUDA kernels (`repro_torch.kernels.{encode,deflate,inflate}`),
+which the pipeline dispatches to.  Canonical codewords and stream words
+are u32: they are stored as `torch.uint32` tensors and computed on as
+int64 in [0, 2^32), because PyTorch has no uint32 arithmetic.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import NamedTuple, Tuple
+
+import torch
+
+MAXLEN = 32          # hard cap on codeword bitlength (u32 stream words)
+SUBCHUNK = 128       # default gap-array subchunk (symbols per decode unit)
+# the reference's static decode-variant buckets (a table decoder up to 16
+# bits); recorded by the encoder's decode_meta so a sequential table
+# decoder can specialize on them
+LUT_BUCKETS = (8, 12, 16)
+_M32 = 0xFFFFFFFF
+
+
+def bucket_max_len(max_len: int) -> int:
+    """Round a practical max codeword length up to the bucket set
+    {8, 12, 16}; anything longer maps to MAXLEN."""
+    for b in LUT_BUCKETS:
+        if max_len <= b:
+            return b
+    return MAXLEN
+
+
+def as_u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> a uint32 tensor (same bits)."""
+    return x.to(torch.int32).view(torch.uint32)
+
+
+def u32_values(x: torch.Tensor) -> torch.Tensor:
+    """uint32 tensor -> int64 values in [0, 2^32)."""
+    return x.view(torch.int32).to(torch.int64) & _M32
+
+
+# ---------------------------------------------------------------------------
+# Tree build -> codeword lengths
+# ---------------------------------------------------------------------------
+
+def codeword_lengths(freq: torch.Tensor) -> torch.Tensor:
+    """Two-queue Huffman on a host copy of `freq`.
+
+    With symbols sorted by frequency (stable: ties keep symbol order),
+    merged internal nodes come out in non-decreasing frequency order, so
+    two pointer-queues replace the heap.  Same picks and tie-breaks as the
+    reference's device loop.  Returns int32 bitlengths on the CPU
+    (0 = unused)."""
+    f = freq.detach().to("cpu", torch.int64)
+    k = f.numel()
+    active = f > 0
+    n_active = int(active.sum())
+    big = (2 ** 31 - 1) // 4
+    keyed = torch.where(active, f, big)
+    order = torch.argsort(keyed, stable=True)           # active symbols first
+    lf = keyed[order].tolist()                          # leaf freqs, sorted
+
+    n_int = k - 1                                       # max internal nodes
+    intq = [big] * n_int                                # merged-node freqs
+    ch1 = [0] * n_int                                   # children (node ids:
+    ch2 = [0] * n_int                                   #  leaf i<k, int. k+j)
+    i = j = 0
+    for t in range(max(n_active - 1, 0)):
+        picked = []
+        for _ in range(2):
+            if i < n_active and (j >= t or lf[i] <= intq[j]):
+                picked.append((lf[i], i))
+                i += 1
+            else:
+                picked.append((intq[j], k + j))
+                j += 1
+        (f1, n1), (f2, n2) = picked
+        intq[t] = f1 + f2
+        ch1[t] = n1
+        ch2[t] = n2
+
+    # parents are created after their children: walk internal nodes from
+    # the root (last created) down, propagating depth
+    depth = [0] * (k + n_int)
+    for t in range(n_active - 2, -1, -1):
+        d = depth[k + t] + 1
+        depth[ch1[t]] = d
+        depth[ch2[t]] = d
+
+    lengths = torch.zeros(k, dtype=torch.int32)
+    lengths[order] = torch.tensor(depth[:k], dtype=torch.int32)
+    if n_active == 1:                   # single symbol: a 1-bit code
+        lengths = torch.where(active, 1, lengths).to(torch.int32)
+    return torch.where(active, lengths, 0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Canonical codebook (paper §3.2.3)
+# ---------------------------------------------------------------------------
+
+class Codebook(NamedTuple):
+    lengths: torch.Tensor     # [k] int32 bitlength per symbol (0 = unused)
+    codes: torch.Tensor       # [k] uint32 canonical codeword (right-aligned)
+    first_code: torch.Tensor  # [MAXLEN+1] uint32 first code per length
+    start_idx: torch.Tensor   # [MAXLEN+1] int32 first symbol of length l
+    sym_canon: torch.Tensor   # [k] int32 symbols in canonical order
+    max_len: torch.Tensor     # 0-d int32
+
+    def to(self, device) -> "Codebook":
+        return Codebook(*(t.to(device) for t in self))
+
+
+def _length_counts(lengths: torch.Tensor) -> torch.Tensor:
+    """[MAXLEN+1] int64 number of symbols per bitlength (length 0 not
+    counted)."""
+    lc = lengths.long().clamp(0, MAXLEN)
+    cnt = torch.zeros(MAXLEN + 1, dtype=torch.int64, device=lengths.device)
+    cnt.scatter_add_(0, lc, torch.ones_like(lc))
+    cnt[0] = 0
+    return cnt
+
+
+def canonical_codebook(lengths: torch.Tensor) -> Codebook:
+    """Canonical codes from bitlengths alone (Schwartz-Kallick).
+
+    Bijective, bitlength-preserving and decodable without the tree via
+    (first_code, start_idx, sym_canon)."""
+    dev = lengths.device
+    lengths = lengths.to(torch.int32)
+    k = lengths.numel()
+    cnt = _length_counts(lengths)
+    cnt_l = cnt.tolist()
+    fc = [0] * (MAXLEN + 1)
+    for l in range(1, MAXLEN + 1):          # u32 recurrence, wraps like it
+        fc[l] = ((fc[l - 1] + cnt_l[l - 1]) << 1) & _M32
+    first_code = torch.tensor(fc, dtype=torch.int64, device=dev)
+    start_idx = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                           torch.cumsum(cnt, 0)[:-1]])
+    # canonical order: (length, symbol) ascending, unused symbols last
+    key = (torch.where(lengths > 0, lengths, MAXLEN + 1).long() * (2 * k)
+           + torch.arange(k, device=dev))
+    sym_canon = torch.argsort(key, stable=True)
+    pos = torch.empty(k, dtype=torch.int64, device=dev)
+    pos[sym_canon] = torch.arange(k, device=dev)     # canonical rank of sym
+    lc = lengths.long().clamp(0, MAXLEN)
+    rank = pos - start_idx[lc]
+    codes = (first_code[lc] + rank) & _M32
+    codes = torch.where(lengths > 0, codes, 0)
+    max_len = lengths.max() if k else torch.tensor(0)
+    return Codebook(lengths, as_u32(codes), as_u32(first_code),
+                    start_idx.to(torch.int32), sym_canon.to(torch.int32),
+                    max_len.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Encode + deflate (plain versions of the CUDA kernels)
+# ---------------------------------------------------------------------------
+
+def encode(codes: torch.Tensor, cb: Codebook
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Codebook gather: per-symbol (codeword uint32, bitwidth int32),
+    flat.  A symbol outside [0, k) encodes to (0, 0)."""
+    flat = codes.reshape(-1).long()
+    k = cb.lengths.numel()
+    ok = (flat >= 0) & (flat < k)
+    idx = flat.clamp(0, k - 1)
+    cw = torch.where(ok, cb.codes.view(torch.int32)[idx], 0)
+    bw = torch.where(ok, cb.lengths[idx], 0)
+    return cw.to(torch.int32).view(torch.uint32), bw.to(torch.int32)
+
+
+def norm_sub_size(chunk_size: int, sub_size: int) -> int:
+    """Clamp the gap-array subchunk to the chunk and check divisibility."""
+    sub = min(int(sub_size), int(chunk_size))
+    if chunk_size % sub:
+        raise ValueError(f"sub_size {sub} must divide chunk_size "
+                         f"{chunk_size}")
+    return sub
+
+
+def deflate(cw: torch.Tensor, bw: torch.Tensor, chunk_size: int,
+            sub_size: int = SUBCHUNK
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Concatenate variable-length codes into dense per-chunk bitstreams.
+
+    Exclusive prefix sum of bitwidths = bit offset of every codeword; each
+    codeword contributes <= 2 disjoint u32 fragments (MSB-first), summed
+    into place (add == OR on disjoint bits).  The prefix sums sampled at
+    every `sub_size`-th symbol are the gap arrays.
+
+    Returns (words[nc, chunk_size] uint32, bits_used[nc] int32,
+    gap_bits[nc, chunk_size//sub_size] int32, gap_syms[...] int32)."""
+    sub = norm_sub_size(chunk_size, sub_size)
+    dev = cw.device
+    n = cw.numel()
+    nc = -(-n // chunk_size)
+    pad = nc * chunk_size - n
+    cw64 = torch.nn.functional.pad(u32_values(cw.reshape(-1)), (0, pad))
+    bw32 = torch.nn.functional.pad(bw.reshape(-1).to(torch.int32), (0, pad))
+    cw64 = cw64.reshape(nc, chunk_size)
+    bw32 = bw32.reshape(nc, chunk_size)
+
+    offs = torch.cumsum(bw32, dim=1, dtype=torch.int32) - bw32  # exclusive
+    bits_used = (offs[:, -1] + bw32[:, -1]).to(torch.int32)
+    gap_bits = offs[:, ::sub].contiguous()
+    valid = bw32 > 0
+    v32 = valid.to(torch.int32)
+    gap_syms = (torch.cumsum(v32, dim=1, dtype=torch.int32) - v32)[:, ::sub]
+
+    w = (offs >> 5).long()
+    sh = (32 - (offs & 31) - bw32).long()
+    hi = torch.where(sh >= 0, (cw64 << sh.clamp(0, 31)) & _M32,
+                     cw64 >> (-sh).clamp(0, 31))
+    lo = torch.where(sh < 0, (cw64 << (32 + sh).clamp(0, 31)) & _M32, 0)
+    hi = torch.where(valid, hi, 0)
+    lo = torch.where(valid, lo, 0)
+
+    # fragments whose word falls outside the chunk are dropped, via a
+    # spill slot past the end
+    row = torch.arange(nc, device=dev).unsqueeze(1) * chunk_size
+    spill = nc * chunk_size
+    out = torch.zeros(spill + 1, dtype=torch.int64, device=dev)
+    for word, frag in ((w, hi), (w + 1, lo)):
+        slot = torch.where((word >= 0) & (word < chunk_size), row + word,
+                           spill)
+        out.scatter_add_(0, slot.reshape(-1), frag.reshape(-1))
+    words = as_u32(out[:spill] & _M32).reshape(nc, chunk_size)
+    return words, bits_used, gap_bits, gap_syms.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Gap-array two-phase decode (Rivera et al., arXiv 2201.09118)
+# ---------------------------------------------------------------------------
+
+class DecodeTable(NamedTuple):
+    """What the decode side derives from a codebook, built once per
+    codebook (see `decode_table`).
+
+    Left-aligned canonical code intervals tile [0, 2^32) contiguously in
+    length order, so for a 32-bit left-aligned peek of a valid stream the
+    codeword length is
+
+        len = 1 + sum_l lmask[l] * [peek >= thresh[l]]
+
+    with thresh[l] = (first_code[l] + count[l]) << (32 - l) and lmask
+    enabling 1 <= l < max_len.  This one decoder serves every max-length
+    regime (the reference's LUT variant gives the same symbols)."""
+    cb: Codebook
+    thresh: torch.Tensor      # [MAXLEN + 1] uint32 end-of-interval bounds
+    lmask: torch.Tensor       # [MAXLEN + 1] int32 validity of each bound
+
+    def to(self, device) -> "DecodeTable":
+        return DecodeTable(self.cb.to(device), self.thresh.to(device),
+                           self.lmask.to(device))
+
+
+def _length_bounds(cb: Codebook) -> Tuple[torch.Tensor, torch.Tensor]:
+    cnt = _length_counts(cb.lengths)
+    ell = torch.arange(MAXLEN + 1, device=cnt.device)
+    span = (u32_values(cb.first_code) + cnt) & _M32
+    thresh = (span << (32 - ell).clamp(0, 31)) & _M32
+    lmask = ((ell >= 1) & (ell < cb.max_len)).to(torch.int32)
+    return as_u32(thresh), lmask
+
+
+def build_decode_table(lengths: torch.Tensor) -> DecodeTable:
+    """Codebook + decode bounds from stored bitlengths, built on the host
+    and moved to the device of `lengths`."""
+    cb = canonical_codebook(lengths.detach().to("cpu"))
+    thresh, lmask = _length_bounds(cb)
+    return DecodeTable(cb, thresh, lmask).to(lengths.device)
+
+
+# identity-keyed LRU: repeated decodes of the same stored codebook reuse
+# the built tables; entries hold a strong ref to the key tensor so an id()
+# can never be reused while its entry is alive.
+_DECODE_TABLE_CACHE: "OrderedDict[int, Tuple[torch.Tensor, DecodeTable]]" = \
+    OrderedDict()
+_DECODE_TABLE_CACHE_SIZE = 64
+
+
+def decode_table(lengths: torch.Tensor) -> DecodeTable:
+    """Cached `build_decode_table` (one build per codebook tensor)."""
+    key = id(lengths)
+    hit = _DECODE_TABLE_CACHE.get(key)
+    if hit is not None and hit[0] is lengths:
+        _DECODE_TABLE_CACHE.move_to_end(key)
+        return hit[1]
+    tbl = build_decode_table(lengths)
+    _DECODE_TABLE_CACHE[key] = (lengths, tbl)
+    while len(_DECODE_TABLE_CACHE) > _DECODE_TABLE_CACHE_SIZE:
+        _DECODE_TABLE_CACHE.popitem(last=False)
+    return tbl
+
+
+def inflate_gap(words: torch.Tensor, n_valid: torch.Tensor,
+                gap_bits: torch.Tensor, table: DecodeTable, sub_size: int
+                ) -> torch.Tensor:
+    """Phase-2 gap-array decode: every subchunk decodes independently from
+    its recorded bit offset, `sub_size` sequential steps with all
+    nc·(W/sub_size) cursors in lockstep.
+
+    words: [nc, W] uint32; n_valid: [nc]; gap_bits: [nc, W // sub_size].
+    Returns int32 codes [nc, W]; positions past n_valid are 0."""
+    nc, W = words.shape
+    n_sub = gap_bits.shape[1]
+    if n_sub * sub_size != W:
+        raise ValueError(f"gap array [{nc}, {n_sub}] does not tile chunks "
+                         f"of {W} symbols with sub_size={sub_size}")
+    dev = words.device
+    cb = table.cb
+    k = cb.sym_canon.numel()
+    # a word past the chunk reads as 0
+    wext = torch.cat([u32_values(words),
+                      torch.zeros(nc, 1, dtype=torch.int64, device=dev)], 1)
+    thresh = u32_values(table.thresh)
+    lmask = table.lmask > 0
+    first_code = u32_values(cb.first_code)
+    start_idx = cb.start_idx.long()
+    sym_canon = cb.sym_canon
+    base = torch.arange(n_sub, device=dev) * sub_size
+    nv = n_valid.long().unsqueeze(1)
+    bitpos = gap_bits.long()
+    out = torch.empty(nc, n_sub, sub_size, dtype=torch.int32, device=dev)
+    for i in range(sub_size):
+        wi = bitpos >> 5
+        bo = bitpos & 31
+        cur = (torch.gather(wext, 1, wi.clamp(max=W)) << bo) & _M32
+        nxt = torch.gather(wext, 1, (wi + 1).clamp(max=W)) >> (32 - bo)
+        peek = cur | torch.where(bo > 0, nxt, 0)
+        hit = (peek.unsqueeze(-1) >= thresh) & lmask
+        ln = 1 + hit.sum(-1)
+        lnc = ln.clamp(1, MAXLEN)
+        code = peek >> (32 - lnc)
+        # u32 difference reinterpreted as int32, as the reference does
+        diff = (((code - first_code[lnc]) & _M32) ^ (1 << 31)) - (1 << 31)
+        idx = (start_idx[lnc] + diff).clamp(0, k - 1)
+        ok = (base + i) < nv
+        out[:, :, i] = torch.where(ok, sym_canon[idx], 0)
+        bitpos = bitpos + torch.where(ok, ln, 0)
+    return out.reshape(nc, W)

@@ -20,6 +20,8 @@ pytest_plugins = ("tools.lint.pytest_plugin",)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (multi-device subprocess runs)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without one")
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,451 @@
+"""Port parity, per kernel: each plain PyTorch version in `repro_torch`
+against the reference JAX function on the same numpy-seeded inputs, with
+tolerance 0 (integers, codewords, bitstreams and floats alike).  Every
+kernel also gets one case against the reference's Pallas kernel run in
+interpret mode.
+
+The `cuda` tests hold each CUDA kernel against its plain version on the
+card; they decide inside a fixture whether a card is present and skip
+without one.  On the card: `python -m pytest -m cuda tests/test_torch_*.py`.
+"""
+from __future__ import annotations
+
+import importlib
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import dualquant as tdq
+from repro_torch.core import huffman as thf
+from repro_torch.kernels.deflate import ops as t_deflate
+from repro_torch.kernels.encode import ops as t_encode
+from repro_torch.kernels.histogram import ops as t_hist
+from repro_torch.kernels.inflate import ops as t_inflate
+from repro_torch.kernels.lorenzo import ops as t_lorenzo
+
+NBINS = 1024
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference modules, imported on first use (so the card tests run
+    where JAX is absent).  `import repro.core` fails the first time in a
+    fresh process, because `repro.dist` imports a `chaos` module that the
+    checkout lacks; the failed import leaves the partly initialised
+    modules behind and the second attempt succeeds.  Hence one retry."""
+    try:
+        importlib.import_module("repro.core")
+    except ImportError:
+        importlib.import_module("repro.core")
+    names = {"jnp": "jax.numpy", "dq": "repro.core.dualquant",
+             "hf": "repro.core.huffman",
+             "lorenzo": "repro.kernels.lorenzo.ops",
+             "hist": "repro.kernels.histogram.ops",
+             "encode": "repro.kernels.encode.ops",
+             "deflate": "repro.kernels.deflate.ops",
+             "inflate": "repro.kernels.inflate.ops"}
+    return types.SimpleNamespace(**{k: importlib.import_module(v)
+                                    for k, v in names.items()})
+
+
+@pytest.fixture
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit (nvcc)")
+    return torch.device("cuda")
+
+
+def _eq(a, b, what=""):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    if a.dtype.kind == "f":                       # compare float bits
+        a, b = a.view(np.int32), b.astype(np.float32).view(np.int32)
+    np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+def _field(shape, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (np.cumsum(rng.standard_normal(shape), axis=-1)
+            * scale).astype(np.float32)
+
+
+# (data shape, block): odd shapes, both block tables, 1-D to 4-D
+BLOCK_CASES = [
+    ((1000,), (256,)),
+    ((9000,), (4096,)),
+    ((50, 37), (16, 16)),
+    ((70, 130), (64, 128)),
+    ((9, 17, 20), (8, 8, 8)),
+    ((9, 20, 130), (8, 16, 128)),
+    ((3, 9, 10, 11), (1, 8, 8, 8)),
+]
+
+
+def _blocked_pair(ref, shape, block, seed=0, scale=1.0):
+    x = _field(shape, seed, scale)
+    jb = ref.dq.block_split(ref.dq.pad_to_blocks(ref.jnp.asarray(x), block),
+                            block)
+    tb = tdq.block_split(tdq.pad_to_blocks(torch.from_numpy(x), block), block)
+    return jb, tb
+
+
+# ---------------------------------------------------------------------------
+# Lorenzo dual-quant and its inverse
+# ---------------------------------------------------------------------------
+
+class TestLorenzo:
+    @pytest.mark.parametrize("shape,block", BLOCK_CASES)
+    def test_pad_and_block_split_match_reference(self, ref, shape, block):
+        jb, tb = _blocked_pair(ref, shape, block)
+        _eq(tb.numpy(), jb, "blocked")
+        merged = tdq.block_merge(tb, block)
+        _eq(merged.numpy(), ref.dq.block_merge(jb, block), "merged")
+
+    @pytest.mark.parametrize("shape,block", BLOCK_CASES)
+    @pytest.mark.parametrize("eb", [1e-2, 1e-3])
+    def test_dualquant_matches_reference(self, ref, shape, block, eb):
+        jb, tb = _blocked_pair(ref, shape, block, seed=len(shape))
+        jc, jd = ref.lorenzo.dualquant_blocks(jb, eb, NBINS, impl="jax")
+        tc, td = t_lorenzo.dualquant_blocks(tb, eb, NBINS)
+        _eq(tc.numpy(), jc, "codes")
+        _eq(td.numpy(), jd, "delta")
+
+    @pytest.mark.parametrize("shape,block", BLOCK_CASES)
+    def test_reverse_matches_reference(self, ref, shape, block):
+        rng = np.random.default_rng(1)
+        nb = tuple(-(-s // b) for s, b in zip(shape, block))
+        delta = rng.integers(-500, 500, nb + block).astype(np.int32)
+        jr = ref.lorenzo.reverse_blocks(ref.jnp.asarray(delta), 1e-3,
+                                        impl="jax")
+        tr = t_lorenzo.reverse_blocks(torch.from_numpy(delta), 1e-3)
+        _eq(tr.numpy(), jr, "reverse")
+
+    def test_rint_ties_match_reference(self, ref):
+        """Values on exact rint ties of x / (2 eb).  The reference's
+        compiled PREQUANT multiplies by the f32 reciprocal of 2 eb (XLA's
+        form of a division by a constant), and the port follows it, not an
+        IEEE division."""
+        eb = 1e-4
+        two = np.float32(2 * eb)
+        k = np.arange(-2000, 2000, dtype=np.float32)
+        x = ((k + np.float32(0.5)) * two).astype(np.float32).reshape(1, 4000)
+        jc, jd = ref.lorenzo.dualquant_blocks(ref.jnp.asarray(x), eb, NBINS,
+                                              impl="jax")
+        tc, td = t_lorenzo.dualquant_blocks(torch.from_numpy(x), eb, NBINS)
+        _eq(td.numpy(), jd, "delta on ties")
+
+    def test_pallas_interpret_dualquant_and_reverse(self, ref):
+        jb, tb = _blocked_pair(ref, (40, 24), (16, 16), seed=5)
+        jc, jd = ref.lorenzo.dualquant_blocks(jb, 1e-3, NBINS,
+                                              impl="pallas-interpret")
+        tc, td = t_lorenzo.dualquant_blocks(tb, 1e-3, NBINS)
+        _eq(tc.numpy(), jc, "codes")
+        _eq(td.numpy(), jd, "delta")
+        jr = ref.lorenzo.reverse_blocks(jd, 1e-3, impl="pallas-interpret")
+        _eq(t_lorenzo.reverse_blocks(td, 1e-3).numpy(), jr, "reverse")
+
+
+class TestOutliers:
+    @pytest.mark.parametrize("capacity", [16, 300, 5000])
+    def test_extract_outliers_matches_reference(self, ref, capacity):
+        """capacity 16 overflows: n_outliers still counts every outlier."""
+        rng = np.random.default_rng(2)
+        delta = rng.integers(-2000, 2000, 4096).astype(np.int32)
+        in_cap = np.abs(delta) < 512
+        ji, jv, jn = ref.dq.extract_outliers(ref.jnp.asarray(delta),
+                                             ref.jnp.asarray(in_cap), capacity)
+        ti, tv, tn = tdq.extract_outliers(torch.from_numpy(delta),
+                                          torch.from_numpy(in_cap), capacity)
+        _eq(ti.numpy(), ji, "idx")
+        _eq(tv.numpy(), jv, "val")
+        assert int(tn) == int(jn) == int((~in_cap).sum())
+
+    def test_scatter_and_codes_to_delta_match_reference(self, ref):
+        rng = np.random.default_rng(3)
+        codes = rng.integers(0, NBINS, 2000).astype(np.int32)
+        idx = np.array([5, 17, 2000, 2 ** 31 - 1, 1999], np.int32)
+        val = np.array([-900, 901, 7, 8, 1234], np.int32)
+        jd = ref.dq.codes_to_delta(ref.jnp.asarray(codes), NBINS)
+        td = tdq.codes_to_delta(torch.from_numpy(codes), NBINS)
+        _eq(td.numpy(), jd, "codes_to_delta")
+        js = ref.dq.scatter_outliers(jd, ref.jnp.asarray(idx),
+                                     ref.jnp.asarray(val))
+        ts = tdq.scatter_outliers(td, torch.from_numpy(idx),
+                                  torch.from_numpy(val))
+        _eq(ts.numpy(), js, "scatter")
+
+
+# ---------------------------------------------------------------------------
+# Histogram, tree build, canonical codebook
+# ---------------------------------------------------------------------------
+
+def _skewed_codes(n, nbins, seed, spread=3.0):
+    rng = np.random.default_rng(seed)
+    c = np.rint(rng.standard_normal(n) * spread).astype(np.int64) + nbins // 2
+    return np.clip(c, 0, nbins - 1).astype(np.int32)
+
+
+class TestHistogram:
+    @pytest.mark.parametrize("n,nbins", [(1, 1024), (1000, 256),
+                                         (50_000, 1024)])
+    def test_matches_reference(self, ref, n, nbins):
+        codes = _skewed_codes(n, nbins, seed=n)
+        codes[::7] = nbins                       # the pad symbol: not counted
+        jh = ref.hist.histogram(ref.jnp.asarray(codes), nbins, impl="jax")
+        th = t_hist.histogram(torch.from_numpy(codes), nbins)
+        _eq(th.numpy(), jh, "hist")
+
+    def test_pallas_interpret(self, ref):
+        codes = _skewed_codes(3000, 256, seed=9)
+        jh = ref.hist.histogram(ref.jnp.asarray(codes), 256,
+                                impl="pallas-interpret")
+        _eq(t_hist.histogram(torch.from_numpy(codes), 256).numpy(), jh)
+
+
+def _fib(k):
+    f = [1, 1]
+    while len(f) < k:
+        f.append(f[-1] + f[-2])
+    return f[:k]
+
+
+FREQ_CASES = {
+    "single_symbol": lambda: np.eye(1, NBINS, 512, dtype=np.int64)[0] * 77,
+    "two_symbols": lambda: np.bincount([3, 3, 9], minlength=NBINS),
+    "all_ties": lambda: np.where(np.arange(NBINS) % 3 == 0, 5, 0),
+    "skewed": lambda: np.bincount(_skewed_codes(100_000, NBINS, 4),
+                                  minlength=NBINS),
+    "fibonacci_deep": lambda: np.pad(np.array(_fib(30)), (0, NBINS - 30)),
+    "dense_uniformish": lambda: np.random.default_rng(6).integers(
+        1, 50, NBINS),
+}
+
+
+class TestCodebook:
+    @pytest.mark.parametrize("case", sorted(FREQ_CASES))
+    def test_codeword_lengths_match_reference(self, ref, case):
+        freq = FREQ_CASES[case]().astype(np.int32)
+        jl = ref.hf.codeword_lengths(ref.jnp.asarray(freq))
+        tl = thf.codeword_lengths(torch.from_numpy(freq))
+        _eq(tl.numpy(), jl, "lengths")
+        assert tl.device.type == "cpu"
+
+    @pytest.mark.parametrize("case", sorted(FREQ_CASES))
+    def test_canonical_codebook_matches_reference(self, ref, case):
+        freq = FREQ_CASES[case]().astype(np.int32)
+        lengths = np.array(ref.hf.codeword_lengths(ref.jnp.asarray(freq)))
+        jcb = ref.hf.canonical_codebook(ref.jnp.asarray(lengths))
+        tcb = thf.canonical_codebook(torch.from_numpy(lengths))
+        for f in thf.Codebook._fields:
+            _eq(getattr(tcb, f).numpy(), getattr(jcb, f), f)
+        jt, jm = ref.hf._length_bounds(jcb)
+        tt, tm = thf._length_bounds(tcb)
+        _eq(tt.numpy(), jt, "thresh")
+        _eq(tm.numpy(), jm, "lmask")
+
+    @pytest.mark.parametrize("max_len", [1, 7, 8, 9, 12, 13, 16, 17, 32])
+    def test_bucket_max_len_matches_reference(self, ref, max_len):
+        assert thf.bucket_max_len(max_len) == ref.hf.bucket_max_len(max_len)
+
+
+# ---------------------------------------------------------------------------
+# Encode, deflate, inflate
+# ---------------------------------------------------------------------------
+
+def _book(ref, codes, nbins):
+    """(port codebook, reference codebook) from the codes' histogram."""
+    freq = np.bincount(codes[(codes >= 0) & (codes < nbins)],
+                       minlength=nbins).astype(np.int32)
+    lengths = thf.codeword_lengths(torch.from_numpy(freq))
+    return (thf.canonical_codebook(lengths),
+            ref.hf.canonical_codebook(ref.jnp.asarray(lengths.numpy())))
+
+
+class TestEncode:
+    @pytest.mark.parametrize("n", [1, 777, 20_000])
+    def test_matches_reference(self, ref, n):
+        codes = _skewed_codes(n, NBINS, seed=n + 1)
+        tcb, jcb = _book(ref, codes, NBINS)
+        jcw, jbw = ref.encode.encode(ref.jnp.asarray(codes), jcb, impl="jax")
+        tcw, tbw = t_encode.encode(torch.from_numpy(codes), tcb)
+        _eq(tcw.numpy(), jcw, "cw")
+        _eq(tbw.numpy(), jbw, "bw")
+
+    def test_pallas_interpret_and_out_of_range(self, ref):
+        """A symbol outside [0, nbins) encodes to (0, 0), as in the
+        reference kernel."""
+        codes = _skewed_codes(600, NBINS, seed=12)
+        tcb, jcb = _book(ref, codes, NBINS)
+        codes[::50] = NBINS
+        codes[1::50] = -3
+        jcw, jbw = ref.encode.encode(ref.jnp.asarray(codes), jcb,
+                                     impl="pallas-interpret")
+        tcw, tbw = t_encode.encode(torch.from_numpy(codes), tcb)
+        _eq(tcw.numpy(), jcw, "cw")
+        _eq(tbw.numpy(), jbw, "bw")
+        assert int(tbw[0::50].abs().sum()) == 0
+
+
+def _streams(ref, n, chunk, sub, seed, spread=3.0):
+    codes = _skewed_codes(n, NBINS, seed, spread)
+    tcb, jcb = _book(ref, codes, NBINS)
+    tcw, tbw = t_encode.encode(torch.from_numpy(codes), tcb)
+    return codes, tcb, jcb, tcw, tbw
+
+
+DEFLATE_CASES = [(1000, 256, 64), (5000, 512, 128), (9000, 4096, 128),
+                 (4096, 4096, 4096), (300, 64, 64)]
+
+
+class TestDeflate:
+    @pytest.mark.parametrize("n,chunk,sub", DEFLATE_CASES)
+    def test_matches_reference(self, ref, n, chunk, sub):
+        _, _, _, tcw, tbw = _streams(ref, n, chunk, sub, seed=n)
+        jout = ref.deflate.deflate(ref.jnp.asarray(tcw.numpy()),
+                                   ref.jnp.asarray(tbw.numpy()), chunk, sub,
+                                   impl="jax")
+        tout = t_deflate.deflate(tcw, tbw, chunk, sub)
+        for name, t, j in zip(("words", "bits", "gap_bits", "gap_syms"),
+                              tout, jout):
+            _eq(t.numpy(), j, name)
+
+    def test_pallas_interpret(self, ref):
+        _, _, _, tcw, tbw = _streams(ref, 700, 256, 64, seed=21)
+        jout = ref.deflate.deflate(ref.jnp.asarray(tcw.numpy()),
+                                   ref.jnp.asarray(tbw.numpy()), 256, 64,
+                                   impl="pallas-interpret")
+        for t, j in zip(t_deflate.deflate(tcw, tbw, 256, 64), jout):
+            _eq(t.numpy(), j)
+
+
+def _fib_codes(n_sym, seed):
+    """Codes whose Huffman code has max_len = n_sym - 1 (Fibonacci
+    frequencies build the deepest tree)."""
+    counts = _fib(n_sym)
+    codes = np.repeat(np.arange(n_sym) * 7 + 100, counts).astype(np.int32)
+    return np.random.default_rng(seed).permutation(codes)
+
+
+class TestInflate:
+    @pytest.mark.parametrize("n_sym,bucket", [(8, 8), (12, 12), (16, 16),
+                                              (22, 32)])
+    def test_every_max_len_bucket_matches_reference(self, ref, n_sym, bucket):
+        """The port's single length-interval decoder against the
+        reference's LUT (buckets 8/12/16) and bit-interval (32) decoders."""
+        codes = _fib_codes(n_sym, seed=n_sym)
+        chunk, sub = 512, 64
+        tcb, jcb = _book(ref, codes, NBINS)
+        assert thf.bucket_max_len(int(tcb.max_len)) == bucket
+        tcw, tbw = t_encode.encode(torch.from_numpy(codes), tcb)
+        words, bits, gbits, _ = t_deflate.deflate(tcw, tbw, chunk, sub)
+        nc = words.shape[0]
+        n_valid = np.minimum(chunk, np.maximum(
+            len(codes) - np.arange(nc) * chunk, 0)).astype(np.int32)
+        jtab = ref.hf.decode_table(jcb.lengths, bucket)
+        jdec = ref.inflate.inflate(
+            ref.jnp.asarray(words.numpy()), ref.jnp.asarray(bits.numpy()),
+            ref.jnp.asarray(n_valid), jtab, bucket,
+            gaps=ref.jnp.asarray(gbits.numpy()), impl="jax")
+        tdec = t_inflate.inflate(words, torch.from_numpy(n_valid),
+                                 thf.decode_table(tcb.lengths), gaps=gbits)
+        _eq(tdec.numpy(), jdec, "decoded")
+        _eq(tdec.reshape(-1)[:len(codes)].numpy(), codes, "roundtrip")
+
+    def test_pallas_interpret(self, ref):
+        codes = _skewed_codes(900, NBINS, seed=31)
+        tcb, jcb = _book(ref, codes, NBINS)
+        tcw, tbw = t_encode.encode(torch.from_numpy(codes), tcb)
+        words, bits, gbits, _ = t_deflate.deflate(tcw, tbw, 256, 64)
+        nc = words.shape[0]
+        n_valid = np.minimum(256, np.maximum(
+            900 - np.arange(nc) * 256, 0)).astype(np.int32)
+        ml = ref.hf.bucket_max_len(int(jcb.max_len))
+        jdec = ref.inflate.inflate(
+            ref.jnp.asarray(words.numpy()), ref.jnp.asarray(bits.numpy()),
+            ref.jnp.asarray(n_valid), ref.hf.decode_table(jcb.lengths, ml),
+            ml, gaps=ref.jnp.asarray(gbits.numpy()), impl="pallas-interpret")
+        tdec = t_inflate.inflate(words, torch.from_numpy(n_valid),
+                                 thf.decode_table(tcb.lengths), gaps=gbits)
+        _eq(tdec.numpy(), jdec, "decoded")
+
+    def test_gapless_stream_raises(self):
+        codes = _skewed_codes(300, NBINS, seed=2)
+        lengths = thf.codeword_lengths(torch.from_numpy(
+            np.bincount(codes, minlength=NBINS).astype(np.int32)))
+        table = thf.decode_table(lengths)
+        words = torch.zeros((2, 256), dtype=torch.uint32)
+        nv = torch.tensor([256, 44], dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="gap array"):
+            t_inflate.inflate(words, nv, table, gaps=None, impl="cuda")
+        with pytest.raises(NotImplementedError, match="sequential"):
+            t_inflate.inflate(words, nv, table, gaps=None)
+
+
+# ---------------------------------------------------------------------------
+# On the card: every CUDA kernel against its plain version, exactly
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+class TestKernelsOnCard:
+    @pytest.mark.parametrize("shape,block", BLOCK_CASES + [
+        ((8, 16, 128), (8, 16, 128)), ((5, 300), (64, 128))])
+    def test_lorenzo(self, cuda_dev, shape, block):
+        x = torch.from_numpy(_field(shape, 3, 10.0)).to(cuda_dev)
+        xb = tdq.block_split(tdq.pad_to_blocks(x, block), block)
+        kc, kd = t_lorenzo.dualquant_blocks(xb, 1e-3, NBINS, impl="cuda")
+        pc, pd = t_lorenzo.dualquant_blocks(xb, 1e-3, NBINS, impl="torch")
+        assert torch.equal(kc, pc) and torch.equal(kd, pd)
+        kr = t_lorenzo.reverse_blocks(kd, 1e-3, impl="cuda")
+        pr = t_lorenzo.reverse_blocks(kd, 1e-3, impl="torch")
+        assert torch.equal(kr.view(torch.int32), pr.view(torch.int32))
+
+    @pytest.mark.parametrize("n,nbins", [(1, 1024), (777, 256),
+                                         (300_001, 1024)])
+    def test_histogram(self, cuda_dev, n, nbins):
+        codes = _skewed_codes(n, nbins, seed=n, spread=0.3)
+        codes[::11] = nbins
+        c = torch.from_numpy(codes).to(cuda_dev)
+        assert torch.equal(t_hist.histogram(c, nbins, impl="cuda"),
+                           t_hist.histogram(c, nbins, impl="torch"))
+
+    @pytest.mark.parametrize("n,chunk,sub", DEFLATE_CASES)
+    def test_encode_deflate_inflate(self, cuda_dev, n, chunk, sub):
+        codes = _skewed_codes(n, NBINS, seed=n + 5)
+        freq = np.bincount(codes, minlength=NBINS).astype(np.int32)
+        cb = thf.canonical_codebook(
+            thf.codeword_lengths(torch.from_numpy(freq))).to(cuda_dev)
+        c = torch.from_numpy(codes).to(cuda_dev)
+        c[::97] = NBINS                            # out of range: (0, 0)
+        kcw, kbw = t_encode.encode(c, cb, impl="cuda")
+        pcw, pbw = t_encode.encode(c, cb, impl="torch")
+        assert torch.equal(kcw.view(torch.int32), pcw.view(torch.int32))
+        assert torch.equal(kbw, pbw)
+        kout = t_deflate.deflate(kcw, kbw, chunk, sub, impl="cuda")
+        pout = t_deflate.deflate(kcw, kbw, chunk, sub, impl="torch")
+        for k, p in zip(kout, pout):
+            assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+        words, _, gbits, _ = kout
+        nc = words.shape[0]
+        nv = (n - torch.arange(nc, device=cuda_dev) * chunk).clamp(
+            0, chunk).to(torch.int32)
+        table = thf.decode_table(cb.lengths)
+        kdec = t_inflate.inflate(words, nv, table, gaps=gbits, impl="cuda")
+        pdec = t_inflate.inflate(words, nv, table, gaps=gbits, impl="torch")
+        assert torch.equal(kdec, pdec)
+
+    @pytest.mark.parametrize("n_sym", [8, 12, 16, 22])
+    def test_inflate_every_bucket(self, cuda_dev, n_sym):
+        codes = torch.from_numpy(_fib_codes(n_sym, seed=1)).to(cuda_dev)
+        freq = np.bincount(_fib_codes(n_sym, seed=1), minlength=NBINS)
+        cb = thf.canonical_codebook(thf.codeword_lengths(
+            torch.from_numpy(freq.astype(np.int32)))).to(cuda_dev)
+        cw, bw = t_encode.encode(codes, cb, impl="cuda")
+        words, _, gbits, _ = t_deflate.deflate(cw, bw, 4096, 128, impl="cuda")
+        nc = words.shape[0]
+        nv = (codes.numel() - torch.arange(nc, device=cuda_dev) * 4096
+              ).clamp(0, 4096).to(torch.int32)
+        dec = t_inflate.inflate(words, nv, thf.decode_table(cb.lengths),
+                                gaps=gbits, impl="cuda")
+        assert torch.equal(dec.reshape(-1)[:codes.numel()], codes)
