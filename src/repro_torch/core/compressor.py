@@ -7,9 +7,8 @@ cusz container format.
 routes through the `repro_torch.kernels` ops layer, so the same pipeline
 runs the CUDA kernels (CUDA tensors) or their plain PyTorch versions
 (CPU tensors, or any tensor under the "torch" policy), selected by
-`CompressorConfig.kernel_impl`, the `REPRO_TORCH_KERNEL_IMPL` environment
-variable or a `kernels.dispatch.kernel_policy` context.  The pipeline runs
-eagerly on the device of its input.
+`CompressorConfig.kernel_impl` or a `kernels.dispatch.kernel_policy`
+context.  The pipeline runs eagerly on the device of its input.
 
 Compressed-size accounting matches the paper's: Huffman bitstream (word
 aligned per chunk) + sparse outliers + codebook (bitlengths suffice to

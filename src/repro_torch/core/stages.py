@@ -217,8 +217,7 @@ class LorenzoPredictor(Predictor):
         xb = dq.block_split(dq.pad_to_blocks(data, block), block)
         # fused PREQUANT + ℓ-delta + POSTQUANT: one blocked kernel call
         codes, delta = lorenzo_ops.dualquant_blocks(
-            xb, eb, cfg.nbins, **pp.for_kernel("lorenzo.dualquant")
-            .as_kwargs())
+            xb, eb, cfg.nbins, impl=pp.for_kernel("lorenzo.dualquant"))
         # code 0 <=> outlier (in-cap codes are >= 1)
         oidx, oval, n_out = dq.extract_outliers(
             delta.reshape(-1), (codes != 0).reshape(-1), cap)
@@ -232,7 +231,7 @@ class LorenzoPredictor(Predictor):
         nb = tuple(p // b for p, b in zip(pshape, block))
         delta = delta.reshape(nb + tuple(block))
         recon = lorenzo_ops.reverse_blocks(
-            delta, eb, **pp.for_kernel("lorenzo.reverse").as_kwargs())
+            delta, eb, impl=pp.for_kernel("lorenzo.reverse"))
         full = dq.block_merge(recon, block)
         return full[tuple(slice(0, s) for s in shape)]
 
@@ -264,15 +263,15 @@ class HuffmanEncoder(Encoder):
 
     def encode(self, codes, cfg, pp):
         hist = hist_ops.histogram(codes, cfg.nbins,
-                                  **pp.for_kernel("histogram").as_kwargs())
+                                  impl=pp.for_kernel("histogram"))
         # the tree build runs on a host copy of the 4 KB histogram
         lengths = hf.codeword_lengths(hist)
         cb = hf.canonical_codebook(lengths).to(codes.device)
         cw, bw = encode_ops.encode(codes, cb,
-                                   **pp.for_kernel("encode").as_kwargs())
+                                   impl=pp.for_kernel("encode"))
         words, bits, gap_bits, gap_syms = deflate_ops.deflate(
             cw, bw, cfg.chunk_size, cfg.sub_size,
-            **pp.for_kernel("deflate").as_kwargs())
+            impl=pp.for_kernel("deflate"))
         nc = words.shape[0]
         n_sym = codes.numel()
         starts = torch.arange(nc, dtype=torch.int64,
@@ -294,7 +293,7 @@ class HuffmanEncoder(Encoder):
         return inflate_ops.inflate(
             payload["words"], payload["n_valid"], aux,
             gaps=payload.get("gap_bits"),
-            **pp.for_kernel("inflate").as_kwargs()).reshape(-1)
+            impl=pp.for_kernel("inflate")).reshape(-1)
 
     def pack_payload(self, payload):
         bits = np.asarray(payload["bits_used"], dtype=np.int64)

@@ -59,7 +59,7 @@ def deflate_cuda(cw: torch.Tensor, bw: torch.Tensor, chunk_size: int,
 
 def deflate(cw: torch.Tensor, bw: torch.Tensor, chunk_size: int = 512,
             sub_size: int = hf.SUBCHUNK, impl: Optional[str] = None):
-    r = dispatch.resolve(KERNEL.name, cw.device, impl)
-    if r.impl == "cuda":
+    impl = dispatch.resolve(KERNEL.name, cw.device, impl)
+    if impl == "cuda":
         return deflate_cuda(cw, bw, chunk_size, sub_size)
     return ref.deflate_ref(cw, bw, chunk_size, sub_size)

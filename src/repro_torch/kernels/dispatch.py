@@ -10,10 +10,9 @@ Policy values:
 Resolution order (most specific wins):
   1. an explicit per-call ``impl=`` argument
   2. an active ``kernel_policy(...)`` context
-  3. the ``REPRO_TORCH_KERNEL_IMPL`` environment variable
-  4. the caller's configured default (``CompressorConfig.kernel_impl``,
+  3. the caller's configured default (``CompressorConfig.kernel_impl``,
      threaded through ``pipeline_policy``)
-  5. "auto"
+  4. "auto"
 
 Every stage on the cusz path has a CUDA kernel, so there is no fallback:
 a CUDA tensor under "auto" launches the kernel or raises.  Each
@@ -23,14 +22,12 @@ where it launches the kernel, and nowhere else.
 from __future__ import annotations
 
 import dataclasses
-import os
 import threading
 from contextlib import contextmanager
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
-ENV_VAR = "REPRO_TORCH_KERNEL_IMPL"
 IMPL_CHOICES = ("auto", "torch", "cuda")
 
 
@@ -39,45 +36,6 @@ def _validate(impl: str) -> str:
         raise ValueError(f"unknown kernel impl {impl!r}; expected one of "
                          f"{IMPL_CHOICES}")
     return impl
-
-
-@dataclasses.dataclass(frozen=True)
-class Resolved:
-    """A concrete dispatch decision."""
-    impl: str            # "torch" | "cuda"
-
-    def as_kwargs(self) -> dict:
-        return {"impl": self.impl}
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelPolicy:
-    """Scope-level impl choice with optional per-kernel overrides.
-
-    `overrides` maps a kernel name ("histogram") or name prefix
-    ("lorenzo" covers "lorenzo.dualquant" and "lorenzo.reverse") to an
-    impl choice, stored as a sorted tuple so the policy stays hashable.
-    """
-    impl: str = "auto"
-    overrides: Tuple[Tuple[str, str], ...] = ()
-
-    @staticmethod
-    def make(impl: str = "auto",
-             overrides: Optional[Mapping[str, str]] = None) -> "KernelPolicy":
-        _validate(impl)
-        items = tuple(sorted((overrides or {}).items()))
-        for _, v in items:
-            _validate(v)
-        return KernelPolicy(impl, items)
-
-    def impl_for(self, kernel: str) -> str:
-        ov = dict(self.overrides)
-        if kernel in ov:
-            return ov[kernel]
-        head = kernel.split(".", 1)[0]
-        if head in ov:
-            return ov[head]
-        return self.impl
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +70,7 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Ambient policy: context stack (thread-local) > environment variable.
+# Ambient policy: a thread-local stack of `kernel_policy` contexts.
 # ---------------------------------------------------------------------------
 
 _tls = threading.local()
@@ -126,37 +84,24 @@ def _stack() -> list:
 
 
 @contextmanager
-def kernel_policy(impl: str = "auto",
-                  overrides: Optional[Mapping[str, str]] = None
-                  ) -> Iterator[KernelPolicy]:
+def kernel_policy(impl: str = "auto") -> Iterator[str]:
     """Scoped policy override::
 
         with kernel_policy("torch"):
             blob, eb = compress(x, cfg)        # every stage plain
     """
-    policy = KernelPolicy.make(impl, overrides)
     st = _stack()
-    st.append(policy)
+    st.append(_validate(impl))
     try:
-        yield policy
+        yield impl
     finally:
         st.pop()
 
 
-def current_policy() -> Optional[KernelPolicy]:
-    """Active context policy, else the env-var policy, else None."""
+def current_policy() -> Optional[str]:
+    """The innermost active `kernel_policy` impl, else None."""
     st = _stack()
-    if st:
-        return st[-1]
-    env = os.environ.get(ENV_VAR, "").strip()
-    if env:
-        return KernelPolicy.make(_validate(env))
-    return None
-
-
-def ambient_impl(kernel: str) -> Optional[str]:
-    pol = current_policy()
-    return None if pol is None else pol.impl_for(kernel)
+    return st[-1] if st else None
 
 
 # ---------------------------------------------------------------------------
@@ -164,14 +109,14 @@ def ambient_impl(kernel: str) -> Optional[str]:
 # ---------------------------------------------------------------------------
 
 def resolve(kernel: str, device: torch.device,
-            impl: Optional[str] = None) -> Resolved:
+            impl: Optional[str] = None) -> str:
     """Resolve a kernel name (+ optional request) to "torch" or "cuda" for
     tensors on `device`.  A "cuda" request for a CPU tensor raises."""
     if kernel not in _REGISTRY:
         raise KeyError(f"kernel {kernel!r} not registered; known: "
                        f"{sorted(_REGISTRY)}")
     if impl is None:
-        impl = ambient_impl(kernel) or "auto"
+        impl = current_policy() or "auto"
     _validate(impl)
     on_cuda = torch.device(device).type == "cuda"
     if impl == "auto":
@@ -179,7 +124,7 @@ def resolve(kernel: str, device: torch.device,
     if impl == "cuda" and not on_cuda:
         raise ValueError(f"kernel {kernel!r}: impl 'cuda' needs CUDA tensors, "
                          f"got a tensor on {device}")
-    return Resolved(impl)
+    return impl
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +137,14 @@ PIPELINE_STAGES = ("lorenzo.dualquant", "lorenzo.reverse", "histogram",
 
 @dataclasses.dataclass(frozen=True)
 class PipelinePolicy:
-    """Frozen per-kernel dispatch decisions for one device."""
-    entries: Tuple[Tuple[str, Resolved], ...] = ()
+    """Frozen per-kernel dispatch decisions ("torch" | "cuda") for one
+    device."""
+    entries: Tuple[Tuple[str, str], ...] = ()
 
-    def for_kernel(self, kernel: str) -> Resolved:
-        for name, r in self.entries:
+    def for_kernel(self, kernel: str) -> str:
+        for name, impl in self.entries:
             if name == kernel:
-                return r
+                return impl
         raise KeyError(
             f"pipeline policy has no resolution for kernel {kernel!r} "
             f"(resolved: {[n for n, _ in self.entries]})")
@@ -211,10 +157,6 @@ def pipeline_policy(device: torch.device,
     "auto"."""
     if default_impl is not None:
         _validate(default_impl)
-
-    def r(kernel: str) -> Resolved:
-        impl = ambient_impl(kernel)
-        return resolve(kernel, device, impl if impl is not None
-                       else default_impl)
-
-    return PipelinePolicy(entries=tuple((k, r(k)) for k in PIPELINE_STAGES))
+    impl = current_policy() or default_impl
+    return PipelinePolicy(entries=tuple(
+        (k, resolve(k, device, impl)) for k in PIPELINE_STAGES))

@@ -50,7 +50,7 @@ def encode_cuda(codes: torch.Tensor, cb: hf.Codebook
 def encode(codes: torch.Tensor, cb: hf.Codebook, impl: Optional[str] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat (codewords uint32 [n], bitwidths int32 [n])."""
-    r = dispatch.resolve(KERNEL.name, codes.device, impl)
-    if r.impl == "cuda":
+    impl = dispatch.resolve(KERNEL.name, codes.device, impl)
+    if impl == "cuda":
         return encode_cuda(codes, cb)
     return ref.encode_ref(codes, cb)

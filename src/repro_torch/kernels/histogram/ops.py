@@ -39,7 +39,7 @@ def histogram_cuda(codes: torch.Tensor, nbins: int) -> torch.Tensor:
 
 def histogram(codes: torch.Tensor, nbins: int,
               impl: Optional[str] = None) -> torch.Tensor:
-    r = dispatch.resolve(KERNEL.name, codes.device, impl)
-    if r.impl == "cuda":
+    impl = dispatch.resolve(KERNEL.name, codes.device, impl)
+    if impl == "cuda":
         return histogram_cuda(codes, nbins)
     return ref.histogram_ref(codes, nbins)

@@ -79,7 +79,7 @@ def inflate(words: torch.Tensor, n_valid: torch.Tensor,
             "repro_torch does not port yet")
     if sub_size is None:
         sub_size = words.shape[1] // gaps.shape[1]
-    r = dispatch.resolve(KERNEL.name, words.device, impl)
-    if r.impl == "cuda":
+    impl = dispatch.resolve(KERNEL.name, words.device, impl)
+    if impl == "cuda":
         return inflate_cuda(words, n_valid, gaps, table, sub_size)
     return ref.inflate_gap_ref(words, n_valid, gaps, table, sub_size)

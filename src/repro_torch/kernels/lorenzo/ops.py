@@ -88,8 +88,8 @@ def dualquant_blocks(xb: torch.Tensor, eb: float, nbins: int,
                      impl: Optional[str] = None):
     """Fused PREQUANT + ℓ-delta + POSTQUANT on blocked input.
     Returns (codes, delta), both int32 shaped like xb."""
-    r = dispatch.resolve(DUALQUANT.name, xb.device, impl)
-    if r.impl == "cuda":
+    impl = dispatch.resolve(DUALQUANT.name, xb.device, impl)
+    if impl == "cuda":
         return dualquant_blocks_cuda(xb, eb, nbins)
     return ref.dualquant_blocks_ref(xb, eb, nbins)
 
@@ -97,7 +97,7 @@ def dualquant_blocks(xb: torch.Tensor, eb: float, nbins: int,
 def reverse_blocks(delta: torch.Tensor, eb: float,
                    impl: Optional[str] = None) -> torch.Tensor:
     """Per-block cumsum inverse + dequant.  Returns blocked float32."""
-    r = dispatch.resolve(REVERSE.name, delta.device, impl)
-    if r.impl == "cuda":
+    impl = dispatch.resolve(REVERSE.name, delta.device, impl)
+    if impl == "cuda":
         return reverse_blocks_cuda(delta, eb)
     return ref.reverse_blocks_ref(delta, eb)

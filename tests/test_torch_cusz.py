@@ -341,9 +341,8 @@ class TestStagesAndMetrics:
 class TestDispatch:
     def test_auto_follows_the_device(self):
         cpu = torch.device("cpu")
-        assert dispatch.resolve("histogram", cpu).impl == "torch"
-        assert dispatch.resolve("histogram", torch.device("cuda")).impl \
-            == "cuda"
+        assert dispatch.resolve("histogram", cpu) == "torch"
+        assert dispatch.resolve("histogram", torch.device("cuda")) == "cuda"
 
     def test_explicit_cuda_on_cpu_raises(self):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -353,22 +352,34 @@ class TestDispatch:
             TCZ.compress(torch.zeros(300), cfg)
 
     def test_policy_context_env_and_overrides(self, monkeypatch):
+        # the context sets every stage; a per-call impl beats it; the
+        # context beats the configured default
         cuda = torch.device("cuda")
-        with dispatch.kernel_policy("torch", {"lorenzo": "cuda"}):
-            assert dispatch.resolve("histogram", cuda).impl == "torch"
-            assert dispatch.resolve("lorenzo.reverse", cuda).impl == "cuda"
-            pp = dispatch.pipeline_policy(cuda)
-            assert pp.for_kernel("deflate").impl == "torch"
-            assert pp.for_kernel("lorenzo.dualquant").impl == "cuda"
-        monkeypatch.setenv(dispatch.ENV_VAR, "torch")
-        assert dispatch.resolve("inflate", cuda).impl == "torch"
-        assert dispatch.resolve("inflate", cuda, "cuda").impl == "cuda"
-        assert dispatch.pipeline_policy(cuda).for_kernel(
-            "encode").impl == "torch"
+        with dispatch.kernel_policy("torch"):
+            assert dispatch.current_policy() == "torch"
+            assert dispatch.resolve("histogram", cuda) == "torch"
+            assert dispatch.resolve("inflate", cuda, "cuda") == "cuda"
+            pp = dispatch.pipeline_policy(cuda, "cuda")
+            assert {pp.for_kernel(k) for k in dispatch.PIPELINE_STAGES} \
+                == {"torch"}
+        assert dispatch.current_policy() is None
+        pp = dispatch.pipeline_policy(cuda, "torch")
+        assert pp.for_kernel("encode") == "torch"
+        # no environment variable moves the path, and the policy carries
+        # one impl with no per-kernel overrides
+        monkeypatch.setenv("REPRO_TORCH_KERNEL_IMPL", "torch")
+        assert dispatch.resolve("inflate", cuda) == "cuda"
+        assert dispatch.pipeline_policy(cuda).for_kernel("encode") == "cuda"
+        with pytest.raises(TypeError):
+            with dispatch.kernel_policy("torch", {"lorenzo": "cuda"}):
+                pass
 
     def test_unknown_names_raise(self):
         with pytest.raises(ValueError, match="unknown kernel impl"):
-            dispatch.KernelPolicy.make("pallas")
+            with dispatch.kernel_policy("pallas"):
+                pass
+        with pytest.raises(ValueError, match="unknown kernel impl"):
+            dispatch.pipeline_policy(torch.device("cpu"), "jax")
         with pytest.raises(KeyError, match="not registered"):
             dispatch.resolve("interp.predict", torch.device("cpu"))
         assert sorted(dispatch.registered()) == sorted(
