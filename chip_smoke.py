@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the cusz codec (src/repro_torch) on one
-NVIDIA card, and hold every CUDA kernel of its path against its plain
-PyTorch version.
+"""Drive the PyTorch/CUDA port's three codecs (src/repro_torch: cusz,
+cusz-i and fz) on one NVIDIA card, and hold every CUDA kernel of their
+paths against its plain PyTorch version.
 
 Run from the repository root, with no arguments:
 
@@ -10,19 +10,25 @@ Run from the repository root, with no arguments:
 Phases, each printing one JSON line:
 
   env       card name and power limit (nvidia-smi), torch and CUDA versions
-  build     nvcc builds the six kernels for sm_90a; seconds and the
+  build     nvcc builds the ten kernels for sm_90a; seconds and the
             ptxas register / shared-memory report
   kernel:*  each kernel at the main path's shapes on a NYX-like 512^3
             field, compared exactly with its plain version on the card;
             kernel, plain and (where one PyTorch call computes the same
-            function) library times from CUDA events
+            function) library times from CUDA events.  The interpolation
+            kernels are also checked, untimed, on HACC's first level (one
+            row of 140,476,933 values)
   golden    the committed cusz v2 fixture re-encoded on the card, byte for
             byte
-  quality   the six small scidata fields: ratios equal the reference's
-            BENCH_quality.json cusz rows, error bound held
-  main:*    encode -> pack -> decode at the paper's Table 2 sizes (HACC
-            1-D 280,953,867, CESM 1800x3600, NYX 512^3) at eb=1e-4 valrel,
-            with every kernel's launch count read around the phase
+  quality   the six small scidata fields under each codec, configured as
+            benchmarks/quality.py configures it: ratios equal the
+            reference's BENCH_quality.json rows, error bound held
+  main:*    per codec, encode -> device-form decode -> pack -> packed
+            decode at the paper's Table 2 sizes (HACC 1-D 280,953,867,
+            CESM 1800x3600, NYX 512^3) at eb=1e-4 valrel; the launch
+            counts are set to 0 before each codec's path and read after
+            it ("main:<field>" and "main:launches" are cusz's,
+            "main:cusz-i:<field>", "main:fz:<field>" the others')
 
 then the `{"kernels": [...]}` summary and, last, the device line.  Any
 failed check raises, so the script exits nonzero; without a CUDA device it
@@ -44,9 +50,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
-# the cusz rows of BENCH_quality.json (ratio = raw bytes / stored bytes)
-QUALITY_RATIOS = {"hacc": 9.709, "cesm": 4.844, "hurricane": 5.334,
-                  "hurricane_cloud": 11.692, "nyx": 14.447, "qmcpack": 4.122}
+# the codecs as benchmarks/quality.py configures them, and their
+# BENCH_quality.json rows (ratio = raw bytes / stored bytes)
+QUALITY_KW = {"cusz": dict(eb=1e-4, eb_mode="valrel"),
+              "cusz-i": dict(eb=1e-4, eb_mode="valrel", outlier_frac=1.0),
+              "fz": dict(eb=1e-4, eb_mode="valrel")}
+QUALITY_RATIOS = {
+    "cusz": {"hacc": 9.709, "cesm": 4.844, "hurricane": 5.334,
+             "hurricane_cloud": 11.692, "nyx": 14.447, "qmcpack": 4.122},
+    "cusz-i": {"hacc": 10.48, "cesm": 8.801, "hurricane": 5.038,
+               "hurricane_cloud": 11.577, "nyx": 14.926, "qmcpack": 1.188},
+    "fz": {"hacc": 3.202, "cesm": 2.827, "hurricane": 2.416,
+           "hurricane_cloud": 10.807, "nyx": 11.983, "qmcpack": 3.219},
+}
 
 # kernel name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -62,6 +78,24 @@ KERNELS = {
                 "src/repro/kernels/inflate/kernel.py:103"),
     "lorenzo.reverse": ("src/repro_torch/csrc/lorenzo.cu",
                         "src/repro/kernels/lorenzo/kernel.py:96"),
+    "interp.predict": ("src/repro_torch/csrc/interp.cu",
+                       "src/repro/kernels/interp/kernel.py:62"),
+    "interp.reconstruct": ("src/repro_torch/csrc/interp.cu",
+                           "src/repro/kernels/interp/kernel.py:67"),
+    "bitshuffle.encode": ("src/repro_torch/csrc/bitshuffle.cu",
+                          "src/repro/kernels/bitshuffle/kernel.py:46"),
+    "bitshuffle.decode": ("src/repro_torch/csrc/bitshuffle.cu",
+                          "src/repro/kernels/bitshuffle/kernel.py:63"),
+}
+
+# codec -> the kernels its path must launch
+PATH_KERNELS = {
+    "cusz": ("lorenzo.dualquant", "histogram", "encode", "deflate",
+             "inflate", "lorenzo.reverse"),
+    "cusz-i": ("interp.predict", "histogram", "encode", "deflate",
+               "inflate", "interp.reconstruct"),
+    "fz": ("lorenzo.dualquant", "bitshuffle.encode", "bitshuffle.decode",
+           "lorenzo.reverse"),
 }
 
 RECORD: list = []
@@ -262,6 +296,92 @@ def phase_kernels(torch, dev) -> dict:
            8 * n, 10 * n)
     del rec, delta
     torch.cuda.empty_cache()
+
+    # 7-8. interpolation at NYX's first level (axis 0 of the prequantized
+    # field: 262,144 rows, 256 evens + 3 pad, 256 odds); ~8 integer ops
+    # per value
+    from repro_torch.core import interp
+    from repro_torch.kernels.bitshuffle import ops as bits_ops
+    from repro_torch.kernels.interp import ops as interp_ops
+    x = scidata.nyx_like((512, 512, 512), seed=3, device=dev)
+    axis = interp.interp_plan(tuple(x.shape))[0][0][0]
+    xm = torch.movedim(dq.prequant(x, eb), axis, -1)
+    ev, odd = xm[..., 0::2], xm[..., 1::2]
+    pe = interp._pad_even(ev.reshape(-1, ev.shape[-1]))
+    odd = odd.reshape(-1, odd.shape[-1]).contiguous()
+    del xm, ev
+    rows, mo = odd.shape
+    io_bytes = 4 * pe.numel() + 8 * odd.numel()
+    res = interp_ops.residual_rows_cuda(pe, odd)
+    diff = max_diff(torch, res, interp_ops.ref.residual_rows_ref(pe, odd))
+    record("interp.predict", diff,
+           cuda_ms(torch, lambda: interp_ops.residual_rows_cuda(pe, odd), 10),
+           cuda_ms(torch, lambda: interp_ops.ref.residual_rows_ref(pe, odd),
+                   3),
+           io_bytes, 8 * rows * mo, rows=rows, mo=mo, pe_width=pe.shape[1])
+    back = interp_ops.odd_rows_cuda(pe, res)
+    diff = max_diff(torch, back, interp_ops.ref.odd_rows_ref(pe, res))
+    require(torch.equal(back, odd), "interp.reconstruct does not invert "
+            "interp.predict")
+    record("interp.reconstruct", diff,
+           cuda_ms(torch, lambda: interp_ops.odd_rows_cuda(pe, res), 10),
+           cuda_ms(torch, lambda: interp_ops.ref.odd_rows_ref(pe, res), 3),
+           io_bytes, 8 * rows * mo, rows=rows, mo=mo, pe_width=pe.shape[1])
+    del pe, odd, res, back
+
+    # 9-10. bit planes of fz's codes (Lorenzo 8x8x8 at the same eb) in
+    # chunks of 512: ~2P + 6 scalar ops per symbol to encode, ~3P + 6 to
+    # decode
+    codes, _ = lorenzo_ops.dualquant_blocks_cuda(
+        dq.block_split(x, block), eb, nbins)
+    del x
+    codes2 = codes.reshape(-1, 512)
+    del codes
+    p_count = bits_ops.nplanes(nbins)
+    planes = bits_ops.encode_planes_cuda(codes2, nbins)
+    diff = max_diff(torch, planes,
+                    bits_ops.ref.encode_planes_ref(codes2, nbins))
+    bs_bytes = 4 * codes2.numel() + 4 * planes.numel()
+    record("bitshuffle.encode", diff,
+           cuda_ms(torch, lambda: bits_ops.encode_planes_cuda(codes2, nbins),
+                   10),
+           cuda_ms(torch, lambda: bits_ops.ref.encode_planes_ref(codes2,
+                                                                 nbins), 3),
+           bs_bytes, (2 * p_count + 6) * codes2.numel(),
+           chunks=codes2.shape[0], planes=p_count)
+    dec = bits_ops.decode_planes_cuda(planes, nbins)
+    diff = max_diff(torch, dec, bits_ops.ref.decode_planes_ref(planes, nbins))
+    require(torch.equal(dec, codes2), "bitshuffle.decode does not invert "
+            "bitshuffle.encode")
+    record("bitshuffle.decode", diff,
+           cuda_ms(torch, lambda: bits_ops.decode_planes_cuda(planes, nbins),
+                   10),
+           cuda_ms(torch, lambda: bits_ops.ref.decode_planes_ref(planes,
+                                                                 nbins), 3),
+           bs_bytes, (3 * p_count + 6) * codes2.numel(),
+           chunks=codes2.shape[0], planes=p_count)
+    del codes2, planes, dec
+
+    # the interpolation kernels on HACC's first level: one row of
+    # 140,476,933 odds, which only a kernel that tiles the columns covers
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    mo = 280_953_867 // 2
+    pe = torch.randint(-2 ** 22, 2 ** 22, (1, mo + 4), dtype=torch.int32,
+                       device=dev, generator=g)
+    odd = torch.randint(-2 ** 22, 2 ** 22, (1, mo), dtype=torch.int32,
+                        device=dev, generator=g)
+    res = interp_ops.residual_rows_cuda(pe, odd)
+    back = interp_ops.odd_rows_cuda(pe, res)
+    diff = max(max_diff(torch, res,
+                        interp_ops.ref.residual_rows_ref(pe, odd)),
+               max_diff(torch, back, interp_ops.ref.odd_rows_ref(pe, res)))
+    same = diff == 0.0 and torch.equal(back, odd)
+    emit({"phase": "kernel:interp:hacc_first_level", "rows": 1, "mo": mo,
+          "pe_width": pe.shape[1], "max_abs_err": diff, "equal": same})
+    require(same, f"interp kernels differ on one row of {mo} by {diff}")
+    del pe, odd, res, back
+    torch.cuda.empty_cache()
     return out
 
 
@@ -298,19 +418,22 @@ def phase_quality(torch) -> None:
     from repro_torch.core import metrics as M
     from repro_torch.data import scidata
 
-    for name, f in scidata.all_fields(small=True).items():
-        codec = codecs.get("cusz", eb=1e-4, eb_mode="valrel")
-        c = codec.encode(f, device="cuda")
-        rec = codecs.decode(c)
-        ratio = f.nbytes / codec.stored_nbytes(c)
-        held = M.verify_error_bound(torch.from_numpy(f).cuda(), rec,
-                                    c.header.param("eb"))
-        emit({"phase": "quality", "field": name, "ratio": round(ratio, 3),
-              "reference_ratio": QUALITY_RATIOS[name], "bound_held": held,
-              "psnr_db": M.psnr(torch.from_numpy(f).cuda(), rec)})
-        require(round(ratio, 3) == QUALITY_RATIOS[name] and held,
-                f"quality {name}: ratio {ratio:.3f} vs "
-                f"{QUALITY_RATIOS[name]}, bound held {held}")
+    for cname, kw in QUALITY_KW.items():
+        for name, f in scidata.all_fields(small=True).items():
+            codec = codecs.get(cname, **kw)
+            c = codec.encode(f, device="cuda")
+            rec = codecs.decode(c)
+            ratio = f.nbytes / codec.stored_nbytes(c)
+            want = QUALITY_RATIOS[cname][name]
+            held = M.verify_error_bound(torch.from_numpy(f).cuda(), rec,
+                                        c.header.param("eb"))
+            emit({"phase": "quality", "codec": cname, "field": name,
+                  "ratio": round(ratio, 3), "reference_ratio": want,
+                  "bound_held": held,
+                  "psnr_db": M.psnr(torch.from_numpy(f).cuda(), rec)})
+            require(round(ratio, 3) == want and held,
+                    f"quality {cname} {name}: ratio {ratio:.3f} vs {want}, "
+                    f"bound held {held}")
 
 
 def main_fields(torch, dev):
@@ -324,56 +447,79 @@ def main_fields(torch, dev):
 
 
 def phase_main(torch, dev) -> dict:
+    """Each codec's path over the three fields, the launch counts set to
+    0 before the path and read after it.  Returns the counts per codec."""
     from repro_torch import codecs
+    from repro_torch.core import interp
     from repro_torch.core import metrics as M
     from repro_torch.kernels import dispatch
 
-    codec = codecs.get("cusz", eb=1e-4, eb_mode="valrel")
     fields = [(name, make()) for name, make in main_fields(torch, dev)]
     torch.cuda.synchronize()
-
-    dispatch.reset_launches()
-    for name, x in fields:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        raw = x.numel() * x.element_size()
-        t0 = time.perf_counter()
-        c = codec.encode(x)
-        torch.cuda.synchronize()
-        t_enc = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        y_dev = codecs.decode(c)
-        torch.cuda.synchronize()
-        t_dec_dev = time.perf_counter() - t0
-        del y_dev
-        t0 = time.perf_counter()
-        p = codec.pack(c)
-        t_pack = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        y = codecs.decode(p, device=dev)
-        torch.cuda.synchronize()
-        t_dec = time.perf_counter() - t0
-        eb = float(c.header.param("eb"))
-        err = M.max_abs_err(x, y)
-        held = M.verify_error_bound(x, y, eb)
-        emit({"phase": f"main:{name}", "shape": list(x.shape),
-              "raw_bytes": raw, "ratio": raw / p.nbytes, "eb": eb,
-              "encode_s": t_enc, "pack_s": t_pack,
-              "decode_device_form_s": t_dec_dev, "decode_packed_s": t_dec,
-              "encode_GBps": raw / t_enc / 1e9,
-              "decode_device_form_GBps": raw / t_dec_dev / 1e9,
-              "decode_packed_GBps": raw / t_dec / 1e9,
-              "max_abs_err": err, "bound_held": held,
-              "n_outliers": int(c.payload["n_outliers"]),
-              "peak_device_bytes": torch.cuda.max_memory_allocated()})
-        require(held and y.shape == x.shape and bool(torch.isfinite(y).all()),
-                f"main path {name}: bound held {held}, shape {tuple(y.shape)}")
-        del c, p, y
-    counts = dispatch.launch_counts()
-    emit({"phase": "main:launches", **counts})
-    missing = [k for k in KERNELS if counts.get(k, 0) == 0]
-    require(not missing, f"kernels never launched on the main path: {missing}")
-    return counts
+    per_codec = {}
+    for cname, kw in QUALITY_KW.items():
+        codec = codecs.get(cname, **kw)
+        tag = "main" if cname == "cusz" else f"main:{cname}"
+        dispatch.reset_launches()
+        for name, x in fields:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dispatch.launch_counts()
+            raw = x.numel() * x.element_size()
+            t0 = time.perf_counter()
+            c = codec.encode(x)
+            torch.cuda.synchronize()
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            y_dev = codecs.decode(c)
+            torch.cuda.synchronize()
+            t_dec_dev = time.perf_counter() - t0
+            del y_dev
+            t0 = time.perf_counter()
+            p = codec.pack(c)
+            t_pack = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            y = codecs.decode(p, device=dev)
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t0
+            eb = float(c.header.param("eb"))
+            err = M.max_abs_err(x, y)
+            held = M.verify_error_bound(x, y, eb)
+            launches = {k: v - before[k]
+                        for k, v in dispatch.launch_counts().items()
+                        if v != before[k]}
+            emit({"phase": f"{tag}:{name}", "codec": cname,
+                  "shape": list(x.shape), "raw_bytes": raw,
+                  "ratio": raw / p.nbytes, "eb": eb,
+                  "encode_s": t_enc, "pack_s": t_pack,
+                  "decode_device_form_s": t_dec_dev, "decode_packed_s": t_dec,
+                  "encode_GBps": raw / t_enc / 1e9,
+                  "decode_device_form_GBps": raw / t_dec_dev / 1e9,
+                  "decode_packed_GBps": raw / t_dec / 1e9,
+                  "max_abs_err": err, "bound_held": held,
+                  "n_outliers": int(c.payload["n_outliers"]),
+                  "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                  "launches": launches})
+            require(held and y.shape == x.shape
+                    and bool(torch.isfinite(y).all()),
+                    f"{tag} {name}: bound held {held}, shape "
+                    f"{tuple(y.shape)}")
+            if cname == "cusz-i":
+                # one launch per level in each direction; two decodes
+                levels = len(interp.interp_plan(tuple(x.shape))[0])
+                got = (launches.get("interp.predict", 0),
+                       launches.get("interp.reconstruct", 0))
+                require(got == (levels, 2 * levels),
+                        f"{tag} {name}: interp launches {got}, expected "
+                        f"({levels}, {2 * levels})")
+            del c, p, y
+        counts = dispatch.launch_counts()
+        emit({"phase": f"{tag}:launches", **counts})
+        missing = [k for k in PATH_KERNELS[cname] if counts[k] == 0]
+        require(not missing, f"{cname}: kernels never launched on its main "
+                f"path: {missing}")
+        per_codec[cname] = counts
+    return per_codec
 
 
 def main() -> int:
@@ -392,12 +538,17 @@ def main() -> int:
     kernels = phase_kernels(torch, dev)
     phase_golden(torch)
     phase_quality(torch)
-    counts = phase_main(torch, dev)
-    summary = [{**kernels[k], "launches": counts[k]} for k in KERNELS]
+    per_codec = phase_main(torch, dev)
+    # launches summed over the three codecs' main paths
+    summary = [{**kernels[k],
+                "launches": sum(c[k] for c in per_codec.values())}
+               for k in KERNELS]
     for row in summary:
         require(all(row[key] is not None and math.isfinite(row[key])
                     for key in ("ms", "plain_ms", "bound_ms")),
                 f"kernel {row['name']} has no timing")
+        require(row["launches"] > 0,
+                f"kernel {row['name']} never launched on a main path")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -9,6 +9,10 @@ Registered codecs:
 
     "cusz"        full dual-quant + canonical-Huffman pipeline (error-
                   bounded; kernel dispatch via `kernel_impl=`)
+    "cusz-i"      multi-level cubic interpolation + canonical Huffman
+                  (cuSZ-i; the same container surface as cusz)
+    "fz"          Lorenzo + fused bit-plane shuffle with zero-plane
+                  elision (FZ-GPU; the dict pipeline)
 
 Every codec produces a versioned, self-describing `Container` (payload
 dict + static header with codec id/version/dtype/shape/params);
@@ -24,8 +28,11 @@ from .container import (CONTAINER_FORMAT, ChecksumError,  # noqa: F401
 
 # importing the implementation modules populates the registry
 from . import cusz as cusz                # noqa: F401
+from . import cusz_interp as cusz_interp  # noqa: F401
+from . import fz as fz                    # noqa: F401
 
 __all__ = ["Codec", "Container", "Header", "CONTAINER_FORMAT",
            "ChecksumError", "check_container", "payload_crc32",
            "stamp_checksum", "verify_container", "decode", "get", "names",
-           "register", "to_arrays", "from_arrays", "make_header", "cusz"]
+           "register", "to_arrays", "from_arrays", "make_header", "cusz",
+           "cusz_interp", "fz"]

@@ -5,9 +5,9 @@ protocol.
 readback, runs the pipeline on the input's device (kernel dispatch via
 `CompressorConfig.kernel_impl` / the ambient `kernels.dispatch` policy),
 and records every decode-side parameter in the header: the resolved abs
-eb, nbins, chunk and subchunk size, the resolved Lorenzo block and the
-outlier capacity fraction.  Headers and packed payloads are the
-reference's, byte for byte.
+eb, nbins, chunk and subchunk size, the resolved Lorenzo block, the
+outlier capacity fraction and, when it is not "lorenzo", the predictor.
+Headers and packed payloads are the reference's, byte for byte.
 
 `pack` switches the payload to the per-chunk word-packed host form
 (`compressor.pack_blob`); `decode` accepts either form.
@@ -55,10 +55,14 @@ class CuszCodec(Codec):
             else torch.from_numpy(np.ascontiguousarray(x))
         x32 = t.to(device=dev, dtype=torch.float32).contiguous()
         blob, eb = CZ.compress(x32, c)
+        # "predictor" is recorded only when it is not the default, so
+        # lorenzo headers stay those of every container written before
+        # the stages existed
+        extra = {} if c.predictor == "lorenzo" else {"predictor": c.predictor}
         header = self._header(
             x, eb=float(eb), nbins=int(c.nbins), chunk_size=int(c.chunk_size),
-            sub_size=int(c.sub_size), **stages.get_predictor(
-                c.predictor).header_params(tuple(x32.shape), c))
+            sub_size=int(c.sub_size), block=tuple(c.block_for(x32.ndim)),
+            outlier_frac=float(c.outlier_frac), **extra)
         return Container(header, _blob_payload(blob))
 
     def decode(self, c: Container, *, like=None, device=None) -> torch.Tensor:

@@ -1,23 +1,34 @@
 """End-to-end compression pipeline: one `Predictor` + one `Encoder` (see
-`repro_torch.core.stages`), behind the `CompressedBlob` surface of the
-cusz container format.
+`repro_torch.core.stages`).
 
 `CompressorConfig.predictor` / `.encoder` pick the stages by registry id
-("lorenzo" + "huffman" is the paper's cuSZ pipeline).  Every hot stage
-routes through the `repro_torch.kernels` ops layer, so the same pipeline
-runs the CUDA kernels (CUDA tensors) or their plain PyTorch versions
-(CPU tensors, or any tensor under the "torch" policy), selected by
+("lorenzo" + "huffman" is the paper's cuSZ pipeline; "interp" and
+"bitshuffle" compose into cusz-i and fz).  Every hot stage routes through
+the `repro_torch.kernels` ops layer, so the same pipeline runs the CUDA
+kernels (CUDA tensors) or their plain PyTorch versions (CPU tensors, or
+any tensor under the "torch" policy), selected by
 `CompressorConfig.kernel_impl` or a `kernels.dispatch.kernel_policy`
 context.  The pipeline runs eagerly on the device of its input.
 
+Two surfaces over the same stages:
+
+* the dict surface (`StagedPipeline`, `staged_compress` /
+  `staged_decompress`): payloads are flat dicts of tensors, the union of
+  the predictor's and the encoder's disjoint keys, packed and unpacked
+  per stage.  Any predictor x encoder composition works here (fz);
+* the `CompressedBlob` surface (`compress` / `decompress`, `pack_blob` /
+  `unpack_blob`): the named tuple of the lorenzo/interp + huffman payload
+  keys, which is the cusz (and cusz-i) container format.
+
 Compressed-size accounting matches the paper's: Huffman bitstream (word
 aligned per chunk) + sparse outliers + codebook (bitlengths suffice to
-rebuild the canonical book) + the per-subchunk gap arrays + O(1) header.
+rebuild the canonical book) + the per-subchunk gap arrays + O(1) header
+(+ the interp predictor's anchor grid, when present).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +80,8 @@ class CompressedBlob(NamedTuple):
     #   at every sub_size-symbol boundary
     gap_syms: Optional[torch.Tensor] = None   # [nc, n_sub] int32 valid
     #   symbols before each boundary
+    anchor: Optional[torch.Tensor] = None     # [n_anchor] int32 interp
+    #   anchor grid (None for the lorenzo predictor)
 
 
 def resolve_eb(cfg: CompressorConfig, data: torch.Tensor) -> float:
@@ -91,19 +104,94 @@ def resolve_eb(cfg: CompressorConfig, data: torch.Tensor) -> float:
     return eb
 
 
+# ---------------------------------------------------------------------------
+# Generic staged pipeline (dict payloads, any predictor x encoder)
+# ---------------------------------------------------------------------------
+
+def staged_compress(data: torch.Tensor, cfg: CompressorConfig
+                    ) -> Tuple[Dict[str, torch.Tensor], float]:
+    """Returns (payload dict on data's device, resolved abs eb)."""
+    eb = resolve_eb(cfg, data)
+    pp = dispatch.pipeline_policy(data.device, cfg.kernel_impl)
+    pred = stages.get_predictor(cfg.predictor)
+    enc = stages.get_encoder(cfg.encoder)
+    codes, ppay = pred.predict(data, cfg, eb, pp)
+    return {**enc.encode(codes, cfg, pp), **ppay}, eb
+
+
+def staged_decompress(payload: Dict[str, torch.Tensor],
+                      cfg: CompressorConfig, eb: float,
+                      shape: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of `staged_compress`, on the device of the payload."""
+    pred = stages.get_predictor(cfg.predictor)
+    enc = stages.get_encoder(cfg.encoder)
+    device = next(iter(payload.values())).device
+    static_meta, aux = enc.decode_meta(payload, cfg)
+    pp = dispatch.pipeline_policy(device, cfg.kernel_impl)
+    codes = enc.decode(payload, aux, static_meta, cfg, pp)
+    return pred.reconstruct(codes, payload, cfg, eb, tuple(shape), pp)
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedPipeline:
+    """A predictor + encoder composition with the host-side storage and
+    validity surface that codecs build on (`codecs.fz`)."""
+    predictor: stages.Predictor
+    encoder: stages.Encoder
+
+    @staticmethod
+    def from_cfg(cfg: CompressorConfig) -> "StagedPipeline":
+        return StagedPipeline(stages.get_predictor(cfg.predictor),
+                              stages.get_encoder(cfg.encoder))
+
+    def compress(self, data: torch.Tensor, cfg: CompressorConfig):
+        return staged_compress(data, cfg)
+
+    def decompress(self, payload: dict, cfg: CompressorConfig, eb: float,
+                   shape: Tuple[int, ...]) -> torch.Tensor:
+        return staged_decompress(payload, cfg, eb, shape)
+
+    def valid(self, payload: dict) -> bool:
+        return self.predictor.valid(payload)
+
+    # -- storage boundary (host) -------------------------------------------
+    def pack(self, payload: dict) -> Dict[str, np.ndarray]:
+        host = {k: v.cpu().numpy() for k, v in payload.items()}
+        pkeys = set(self.predictor.payload_keys)
+        ppart = {k: v for k, v in host.items() if k in pkeys}
+        epart = {k: v for k, v in host.items() if k not in pkeys}
+        return {**self.encoder.pack_payload(epart),
+                **self.predictor.pack_payload(ppart)}
+
+    def unpack(self, packed: dict, cfg: CompressorConfig,
+               shape: Tuple[int, ...], device) -> Dict[str, torch.Tensor]:
+        """Packed arrays -> a payload of tensors on `device`."""
+        n_sym = self.predictor.n_codes(tuple(shape), cfg)
+        d = dict(self.encoder.unpack_payload(packed, cfg, n_sym))
+        d.update(self.predictor.unpack_payload(packed, cfg, tuple(shape)))
+        return {k: _to_tensor(v, device) for k, v in d.items()}
+
+    def stored_nbytes(self, packed: dict) -> int:
+        return (self.encoder.stored_nbytes(packed)
+                + self.predictor.stored_nbytes(packed) + HEADER_BYTES)
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.require(a, requirements="CW")).to(device)
+
+
+# ---------------------------------------------------------------------------
+# CompressedBlob surface (the cusz container format)
+# ---------------------------------------------------------------------------
+
 def compress(data: torch.Tensor, cfg: CompressorConfig
              ) -> Tuple[CompressedBlob, float]:
     """Returns (blob, resolved_abs_eb); the blob lives on data's device."""
     if cfg.encoder != "huffman":
         raise ValueError(
             f"the CompressedBlob surface encodes the huffman payload "
-            f"layout; encoder {cfg.encoder!r} is not supported")
-    eb = resolve_eb(cfg, data)
-    pp = dispatch.pipeline_policy(data.device, cfg.kernel_impl)
-    pred = stages.get_predictor(cfg.predictor)
-    enc = stages.get_encoder(cfg.encoder)
-    codes, ppay = pred.predict(data, cfg, eb, pp)
-    payload = {**enc.encode(codes, cfg, pp), **ppay}
+            f"layout; encoder {cfg.encoder!r} needs staged_compress()")
+    payload, eb = staged_compress(data, cfg)
     return CompressedBlob(**{f: payload.get(f)
                              for f in CompressedBlob._fields}), eb
 
@@ -111,14 +199,9 @@ def compress(data: torch.Tensor, cfg: CompressorConfig
 def decompress(blob: CompressedBlob, cfg: CompressorConfig, eb: float,
                shape: Tuple[int, ...]) -> torch.Tensor:
     """Inverse of `compress`; runs on the device of the blob's words."""
-    pred = stages.get_predictor(cfg.predictor)
-    enc = stages.get_encoder(cfg.encoder)
-    payload = {f: v for f, v in zip(CompressedBlob._fields, blob)
-               if v is not None}
-    static_meta, table = enc.decode_meta(payload, cfg)
-    pp = dispatch.pipeline_policy(blob.words.device, cfg.kernel_impl)
-    codes = enc.decode(payload, table, static_meta, cfg, pp)
-    return pred.reconstruct(codes, payload, cfg, eb, tuple(shape), pp)
+    return staged_decompress({f: v for f, v in zip(CompressedBlob._fields,
+                                                   blob) if v is not None},
+                             cfg, eb, shape)
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +219,8 @@ def compressed_bytes(blob: CompressedBlob, nbins: int) -> int:
     gaps = 0
     if blob.gap_bits is not None:              # 4 B bit + 2 B symbol offset
         gaps = blob.gap_bits.numel() * 4 + blob.gap_syms.numel() * 2
-    return stream + outliers + book + gaps + HEADER_BYTES
+    anchor = 0 if blob.anchor is None else blob.anchor.numel() * 4
+    return stream + outliers + book + gaps + anchor + HEADER_BYTES
 
 
 def compression_ratio(data: torch.Tensor, blob: CompressedBlob,
@@ -163,6 +247,8 @@ def pack_blob(blob: CompressedBlob) -> dict:
                zip(CompressedBlob._fields, blob) if v is not None}
     d = stages.get_encoder("huffman").pack_payload(payload)
     d.update(stages._pack_outliers(payload))
+    if payload.get("anchor") is not None:
+        d["anchor"] = np.asarray(payload["anchor"], np.int32)
     return d
 
 
@@ -170,7 +256,9 @@ def unpack_blob(d: dict, device) -> CompressedBlob:
     """Packed arrays -> a blob of tensors on `device`."""
     enc = stages.get_encoder("huffman").unpack_payload(d, None, None)
     payload = {**enc, **stages._unpack_outliers(d)}
+    if d.get("anchor") is not None:
+        payload["anchor"] = np.asarray(d["anchor"], np.int32)
     return CompressedBlob(**{
-        f: (torch.from_numpy(np.require(payload[f], requirements="CW"))
-            .to(device) if payload.get(f) is not None else None)
+        f: (_to_tensor(payload[f], device)
+            if payload.get(f) is not None else None)
         for f in CompressedBlob._fields})

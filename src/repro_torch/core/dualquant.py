@@ -11,7 +11,9 @@ prefix sum along each axis.  Data is split into independent blocks with
 an implicit zero padding layer (§3.1.1), so every block is handled alone
 in both directions.  The fused blocked kernels live in
 `repro_torch.kernels.lorenzo`; this module holds the blocking, the
-code <-> delta mapping and the sparse outlier side channel.
+code <-> delta mapping and the sparse outlier side channel, plus the
+unfused PREQUANT / dequant / POSTQUANT steps that the interpolation
+predictor calls on their own.
 """
 from __future__ import annotations
 
@@ -19,11 +21,30 @@ from typing import Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.lorenzo.ref import inv_two_eb, two_eb
+
 # Paper defaults (§3.1.1).
 DEFAULT_BLOCKS = {1: (256,), 2: (16, 16), 3: (8, 8, 8)}
 # The larger lane-aligned blocks of the reference (`use_tpu_blocks`); they
 # change container bytes, so the port keeps them.
 TPU_BLOCKS = {1: (4096,), 2: (64, 128), 3: (8, 16, 128)}
+
+
+def prequant(data: torch.Tensor, eb: float) -> torch.Tensor:
+    """PREQUANT: d° = round(d / (2·eb)) as int32, the only lossy step.
+
+    Computed as the reference's compiled pipeline computes it: one rounded
+    f32 multiply by f32(1) / f32(2·eb) (XLA's form of the division by a
+    compile-time constant), then round-half-to-even.  An IEEE division
+    differs on a few rint ties per field."""
+    r = torch.tensor(inv_two_eb(eb), dtype=torch.float32, device=data.device)
+    return torch.round(data.to(torch.float32) * r).to(torch.int32)
+
+
+def dequant(q: torch.Tensor, eb: float,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of PREQUANT: d• = d° · f32(2·eb)."""
+    return (q.to(torch.float32) * two_eb(eb, q.device)).to(dtype)
 
 
 def padded_shape(shape: Sequence[int], block: Sequence[int]
@@ -73,6 +94,16 @@ def block_merge(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
 # for OUTLIER; in-cap deltas map to 1..cap-1 around the radius.  Outliers
 # keep their exact integer delta in a sparse side channel.
 # ---------------------------------------------------------------------------
+
+def postquant_codes(delta: torch.Tensor, cap: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Map int32 deltas to quant codes in [0, cap).  Returns (codes,
+    in_cap)."""
+    radius = cap // 2
+    in_cap = (delta > -radius) & (delta < radius)
+    codes = torch.where(in_cap, delta + radius, 0).to(torch.int32)
+    return codes, in_cap
+
 
 def codes_to_delta(codes: torch.Tensor, cap: int) -> torch.Tensor:
     """In-cap codes back to deltas; outlier positions (code 0) become 0 and

@@ -9,16 +9,22 @@ The cuSZ pipeline decomposes into two orthogonal stages:
   Encoder    losslessly encodes the quant-code stream to a compact
              payload and decodes it back bit-exactly.
 
-Registered stages (the reference's other stages come in later slices):
+`core.compressor.StagedPipeline` composes one of each; the
+`CompressorConfig.predictor` / `.encoder` ids select them.  Registered
+stages:
 
   predictors  "lorenzo"    blocked first-difference (paper §3.1)
+              "interp"     multi-level cubic interpolation (cuSZ-i) —
+                           `core.interp`
   encoders    "huffman"    canonical Huffman + gap-array deflate (§3.2)
+              "bitshuffle" bit-plane shuffle + zero-plane elision
+                           (FZ-GPU) — `core.bitplane`
 
 Stage methods that run on the device (`predict`, `reconstruct`,
 `encode`, `decode`) receive the resolved `dispatch.PipelinePolicy` and
 route every hot kernel through `repro_torch.kernels.*.ops`.  Host-side
-methods (`decode_meta`, `pack_payload`, `unpack_payload`, `valid`)
-handle the readbacks and the storage form,
+methods (`decode_meta`, `pack_payload`, `unpack_payload`,
+`stored_nbytes`, `valid`) handle the readbacks and the storage form,
 which is numpy and byte-identical to the reference's.
 
 Payloads are flat dicts of tensors; a predictor's and an encoder's key
@@ -58,6 +64,12 @@ class Predictor:
     #: payload keys this stage owns (disjoint from any encoder's)
     payload_keys: Tuple[str, ...] = ()
 
+    def n_codes(self, shape: Tuple[int, ...], cfg) -> int:
+        """Quant-code count for a field of `shape`: `predict` emits
+        exactly this many symbols, `reconstruct` reads
+        `codes_flat[:n_codes]`."""
+        raise NotImplementedError
+
     def predict(self, data: torch.Tensor, cfg, eb: float,
                 pp: dispatch.PipelinePolicy) -> Tuple[torch.Tensor, Payload]:
         """data -> (quant codes, predictor payload).  Code 0 is the
@@ -70,10 +82,6 @@ class Predictor:
         """(decoded flat codes, padded past the field's symbol count,
         payload) -> float32 field."""
         raise NotImplementedError
-
-    def header_params(self, shape: Tuple[int, ...], cfg) -> Dict[str, Any]:
-        """Decode-side parameters a codec should record in its header."""
-        return {}
 
     def valid(self, payload: Payload) -> bool:
         """Host-side post-encode validity check (e.g. outlier overflow)."""
@@ -88,6 +96,10 @@ class Predictor:
                        shape: Tuple[int, ...]) -> Dict[str, np.ndarray]:
         """Inverse of `pack_payload` (dense, decode-ready arrays)."""
         return dict(packed)
+
+    def stored_nbytes(self, packed: Dict[str, np.ndarray]) -> int:
+        """Accounted storage bytes of this stage's packed payload."""
+        raise NotImplementedError
 
 
 class Encoder:
@@ -121,6 +133,9 @@ class Encoder:
     def unpack_payload(self, packed: Dict[str, np.ndarray], cfg,
                        n_sym: int) -> Dict[str, np.ndarray]:
         return dict(packed)
+
+    def stored_nbytes(self, packed: Dict[str, np.ndarray]) -> int:
+        raise NotImplementedError
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +187,12 @@ def shape_meta(shape: Tuple[int, ...], cfg):
     block = cfg.block_for(ndim)
     pshape = dq.padded_shape(shape, block)
     n = int(np.prod(pshape))
-    cap = max(16, int(n * cfg.outlier_frac))    # sparse outlier capacity
-    return ndim, block, pshape, n, cap
+    return ndim, block, pshape, n, outlier_capacity(n, cfg)
+
+
+def outlier_capacity(n: int, cfg) -> int:
+    """Sparse outlier store size for n quant values."""
+    return max(16, int(n * cfg.outlier_frac))
 
 
 def _outlier_valid(payload) -> bool:
@@ -212,6 +231,9 @@ class LorenzoPredictor(Predictor):
     kernels = ("lorenzo.dualquant", "lorenzo.reverse")
     payload_keys = ("out_idx", "out_val", "n_outliers")
 
+    def n_codes(self, shape, cfg) -> int:
+        return shape_meta(tuple(shape), cfg)[3]
+
     def predict(self, data, cfg, eb, pp):
         ndim, block, pshape, n, cap = shape_meta(tuple(data.shape), cfg)
         xb = dq.block_split(dq.pad_to_blocks(data, block), block)
@@ -235,10 +257,6 @@ class LorenzoPredictor(Predictor):
         full = dq.block_merge(recon, block)
         return full[tuple(slice(0, s) for s in shape)]
 
-    def header_params(self, shape, cfg):
-        return {"block": tuple(cfg.block_for(len(shape))),
-                "outlier_frac": float(cfg.outlier_frac)}
-
     def valid(self, payload):
         return _outlier_valid(payload)
 
@@ -247,6 +265,11 @@ class LorenzoPredictor(Predictor):
 
     def unpack_payload(self, packed, cfg, shape):
         return _unpack_outliers(packed)
+
+    def stored_nbytes(self, packed):
+        # (idx, delta) int32 pairs of the used prefix, as in the paper's
+        # sparse outlier accounting
+        return len(packed["out_idx"]) * 8
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +355,16 @@ class HuffmanEncoder(Encoder):
             d["gap_syms"] = np.asarray(packed["gap_syms"], np.int32)
         return d
 
+    def stored_nbytes(self, packed):
+        bits = np.asarray(packed["bits_used"], dtype=np.int64)
+        stream = int(np.sum((bits + 31) // 32) * 4)
+        book = len(packed["lengths"])          # 1 B bitlength per symbol
+        gaps = 0
+        if packed.get("gap_bits") is not None:
+            gaps = (np.asarray(packed["gap_bits"]).size * 4
+                    + np.asarray(packed["gap_syms"]).size * 2)
+        return stream + book + gaps
+
 
 def _packed_coords(bits: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """(chunk_id, in-chunk column) of every used word, packed order."""
@@ -344,3 +377,8 @@ def _packed_coords(bits: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 register_predictor("lorenzo", LorenzoPredictor)
 register_encoder("huffman", HuffmanEncoder)
+
+# the sibling stage modules register on import; they import this module
+# for the protocol, so their imports come last
+from . import bitplane as _bitplane  # noqa: E402,F401  ("bitshuffle")
+from . import interp as _interp      # noqa: E402,F401  ("interp")

@@ -5,4 +5,5 @@ the kernel is held against on the card).  `dispatch` is the policy layer;
 `_build` compiles `csrc/*.cu` with nvcc at first use.
 """
 from . import dispatch  # noqa: F401  (import first: ops modules register)
-from . import deflate, encode, histogram, inflate, lorenzo  # noqa: F401
+from . import (bitshuffle, deflate, encode, histogram,  # noqa: F401
+               inflate, interp, lorenzo)

@@ -14,7 +14,8 @@ Resolution order (most specific wins):
      threaded through ``pipeline_policy``)
   4. "auto"
 
-Every stage on the cusz path has a CUDA kernel, so there is no fallback:
+Every stage of the three codecs (cusz, cusz-i, fz) has a CUDA kernel, so
+there is no fallback:
 a CUDA tensor under "auto" launches the kernel or raises.  Each
 registered kernel carries a ``launches`` count that its wrapper bumps
 where it launches the kernel, and nowhere else.
@@ -132,7 +133,9 @@ def resolve(kernel: str, device: torch.device,
 # ---------------------------------------------------------------------------
 
 PIPELINE_STAGES = ("lorenzo.dualquant", "lorenzo.reverse", "histogram",
-                   "encode", "deflate", "inflate")
+                   "encode", "deflate", "inflate", "interp.predict",
+                   "interp.reconstruct", "bitshuffle.encode",
+                   "bitshuffle.decode")
 
 
 @dataclasses.dataclass(frozen=True)

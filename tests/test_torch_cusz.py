@@ -120,6 +120,19 @@ class TestGolden:
         assert c.header.to_json() == hdr
         _same_arrays(c.payload, {k: z[k] for k in z.files if k != "field"})
 
+    def test_lorenzo_header_records_no_predictor(self):
+        """The header is written as the reference writes it: `block` and
+        `outlier_frac` always, `predictor` only when it is not lorenzo,
+        so the golden header stays as it was."""
+        z, hdr = _golden()
+        c = tcodecs.get("cusz", cfg=TCZ.CompressorConfig(**GOLDEN_KW)
+                        ).encode(torch.from_numpy(z["field"]))
+        params = c.header.to_json()["params"]
+        assert "predictor" not in params and "predictor" not in \
+            hdr["params"]
+        assert params == {k: v for k, v in hdr["params"].items()
+                          if k not in ("packed", "checksum")}
+
     def test_stored_fixture_decodes_like_reference(self, ref):
         z, hdr = _golden()
         arrays = {k: z[k] for k in z.files if k != "field"}
@@ -259,7 +272,7 @@ class TestConfigs:
 
 class TestCodecSurface:
     def test_registry(self):
-        assert tcodecs.names() == ["cusz"]
+        assert tcodecs.names() == ["cusz", "cusz-i", "fz"]
         assert tcodecs.get("cusz") is tcodecs.get("cusz")
         with pytest.raises(KeyError, match="unknown codec"):
             tcodecs.get("zfp")
@@ -316,16 +329,22 @@ class TestCodecSurface:
 class TestStagesAndMetrics:
     def test_stage_registry_contract(self):
         from repro_torch.core import stages
-        assert stages.predictor_names() == ("lorenzo",)
-        assert stages.encoder_names() == ("huffman",)
+        assert stages.predictor_names() == ("interp", "lorenzo")
+        assert stages.encoder_names() == ("bitshuffle", "huffman")
         pred, enc = stages.get_predictor("lorenzo"), stages.get_encoder(
             "huffman")
         assert pred is stages.get_predictor("lorenzo")
         assert not set(pred.payload_keys) & set(enc.payload_keys)
-        assert set(pred.kernels + enc.kernels) == set(
-            dispatch.PIPELINE_STAGES)
+        kernels = set()
+        for p in stages.predictor_names():
+            kernels |= set(stages.get_predictor(p).kernels)
+        for e in stages.encoder_names():
+            kernels |= set(stages.get_encoder(e).kernels)
+        assert kernels == set(dispatch.PIPELINE_STAGES)
         with pytest.raises(KeyError, match="unknown predictor"):
-            stages.get_predictor("interp")
+            stages.get_predictor("spline")
+        with pytest.raises(KeyError, match="unknown encoder"):
+            stages.get_encoder("ans")
 
     def test_metrics_match_reference(self, ref):
         rng = np.random.default_rng(8)
@@ -381,7 +400,7 @@ class TestDispatch:
         with pytest.raises(ValueError, match="unknown kernel impl"):
             dispatch.pipeline_policy(torch.device("cpu"), "jax")
         with pytest.raises(KeyError, match="not registered"):
-            dispatch.resolve("interp.predict", torch.device("cpu"))
+            dispatch.resolve("zfp.encode", torch.device("cpu"))
         assert sorted(dispatch.registered()) == sorted(
             dispatch.PIPELINE_STAGES)
 
