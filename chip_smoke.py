@@ -15,9 +15,12 @@ Phases, each printing one JSON line:
   kernel:*  each kernel at the main path's shapes on a NYX-like 512^3
             field, compared exactly with its plain version on the card;
             kernel, plain and (where one PyTorch call computes the same
-            function) library times from CUDA events.  The interpolation
-            kernels are also checked, untimed, on HACC's first level (one
-            row of 140,476,933 values)
+            function) library times from CUDA events.  Also: the share
+            of inflate steps that take the long-code path, inflate on a
+            max_len-32 stream, lorenzo.reverse on the same bytes as
+            (256) and (16,16) blocks, and the interpolation kernels,
+            untimed, on HACC's first level (one row of 140,476,933
+            values)
   golden    the committed cusz v2 fixture re-encoded on the card, byte for
             byte
   quality   the six small scidata fields under each codec, configured as
@@ -166,6 +169,62 @@ def phase_build() -> None:
           "ptxas": ptxas})
 
 
+def long_code_shares(torch, lengths, flat, nc: int, chunk: int,
+                     sub: int) -> dict:
+    """Share of inflate steps whose codeword is longer than the kernel's
+    LUT (they take the interval compare), per symbol and per warp step (a
+    warp of 32 consecutive cursors waits whenever one of its lanes does)."""
+    from repro_torch.core import huffman as hf
+    n = flat.numel()
+    long = torch.zeros(nc * chunk, dtype=torch.bool, device=flat.device)
+    long[:n] = lengths.long()[flat.long()] > hf.LUT_BITS
+    steps = long.view(-1, sub)                      # [cursors, sub]
+    pad = -steps.shape[0] % 32
+    if pad:
+        steps = torch.cat([steps, steps.new_zeros(pad, sub)])
+    warp_any = steps.view(-1, 32, sub).any(1)
+    return {"lut_bits": hf.LUT_BITS,
+            "long_code_share": float(long.sum()) / max(n, 1),
+            "long_code_warp_step_share": float(warp_any.float().mean())}
+
+
+def inflate_long_codes(torch, dev, chunk: int, sub: int) -> None:
+    """The inflate kernel against its plain version on a stream whose
+    code reaches max_len 32 (Fibonacci frequencies over 33 symbols), so
+    many steps take the interval compare."""
+    from repro_torch.core import huffman as hf
+    from repro_torch.kernels.deflate import ops as deflate_ops
+    from repro_torch.kernels.encode import ops as encode_ops
+    from repro_torch.kernels.inflate import ops as inflate_ops
+    fib = [1, 1]
+    while len(fib) < 33:
+        fib.append(fib[-1] + fib[-2])
+    freq = torch.zeros(1024, dtype=torch.int64)
+    freq[100:133] = torch.tensor(fib)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    codes = torch.repeat_interleave(torch.arange(1024, device=dev),
+                                    freq.to(dev)).to(torch.int32)
+    codes = codes[torch.randperm(codes.numel(), device=dev, generator=g)]
+    cb = hf.canonical_codebook(hf.codeword_lengths(freq)).to(dev)
+    cw, bw = encode_ops.encode_cuda(codes, cb)
+    words, _, gbits, _ = deflate_ops.deflate_cuda(cw, bw, chunk, sub)
+    nc, n = words.shape[0], codes.numel()
+    n_valid = (n - torch.arange(nc, device=dev, dtype=torch.int64) * chunk
+               ).clamp(0, chunk).to(torch.int32)
+    tbl = hf.build_decode_table(cb.lengths)
+    dec = inflate_ops.inflate_cuda(words, n_valid, gbits, tbl, sub)
+    diff = max_diff(torch, dec, inflate_ops.ref.inflate_gap_ref(
+        words, n_valid, gbits, tbl, sub))
+    same = diff == 0.0 and torch.equal(dec.reshape(-1)[:n], codes)
+    emit({"phase": "kernel:inflate:long_codes", "n": n,
+          "max_len": int(cb.max_len), "max_abs_err": diff, "equal": same,
+          **long_code_shares(torch, cb.lengths, codes, nc, chunk, sub)})
+    require(same and int(cb.max_len) > hf.LUT_BITS,
+            f"inflate differs on a max_len {int(cb.max_len)} stream by "
+            f"{diff}")
+
+
 def phase_kernels(torch, dev) -> dict:
     """Every kernel against its plain version at the NYX 512^3 shapes."""
     from repro_torch.core import compressor as CZ
@@ -264,8 +323,9 @@ def phase_kernels(torch, dev) -> dict:
            8 * n + 4 * nc * chunk + 4 * nc + 8 * gbits.numel(), 15 * n)
     del cw, bw
 
-    # 5. inflate: ~45 scalar ops per symbol (33 compares, the table walk);
-    # bytes are the used stream words, not the dense buffer
+    # 5. inflate: ~12 scalar ops per symbol (the LUT lookup, the shift
+    # and refill test, the staged store); bytes are the used stream words,
+    # not the dense buffer
     tbl = hf.build_decode_table(cb.lengths)
     starts = torch.arange(nc, device=dev, dtype=torch.int64) * chunk
     n_valid = (n - starts).clamp(0, chunk).to(torch.int32)
@@ -282,19 +342,40 @@ def phase_kernels(torch, dev) -> dict:
            cuda_ms(torch, lambda: inflate_ops.ref.inflate_gap_ref(
                words, n_valid, gbits, tbl, sub), 2),
            4 * used_words + 4 * nc + 4 * gbits.numel() + 4 * nc * chunk,
-           45 * n, stream_bytes=4 * used_words)
+           12 * n, stream_bytes=4 * used_words,
+           **long_code_shares(torch, cb.lengths, flat, nc, chunk, sub))
     del words, dec, codes, flat
+    inflate_long_codes(torch, dev, chunk, sub)
 
-    # 6. reverse: ~10 scalar ops per value (3 axes x 3 scan steps, dequant)
+    # 6. reverse: ~10 scalar ops per value (3 axes x 3 scan steps, dequant);
+    # then the same bytes viewed as (256) and (16,16) blocks
     rec = lorenzo_ops.reverse_blocks_cuda(delta, eb)
     diff = max_diff(torch, rec, lorenzo_ref.reverse_blocks_ref(delta, eb))
+    del rec
     record("lorenzo.reverse", diff,
            cuda_ms(torch, lambda: lorenzo_ops.reverse_blocks_cuda(delta, eb),
                    10),
            cuda_ms(torch, lambda: lorenzo_ref.reverse_blocks_ref(delta, eb),
                    3),
-           8 * n, 10 * n)
-    del rec, delta
+           8 * n, 10 * n, block=list(block))
+    for view in ((-1, 256), (-1, 1, 16, 16)):
+        d = delta.view(view)
+        rec = lorenzo_ops.reverse_blocks_cuda(d, eb)
+        diff = max_diff(torch, rec, lorenzo_ref.reverse_blocks_ref(d, eb))
+        del rec
+        b, by = bound_ms(8 * n, 10 * n)
+        ms = cuda_ms(torch, lambda: lorenzo_ops.reverse_blocks_cuda(d, eb),
+                     10)
+        plain = cuda_ms(torch, lambda: lorenzo_ref.reverse_blocks_ref(d, eb),
+                        3)
+        name = "x".join(str(v) for v in view[-2:] if v > 1)
+        emit({"phase": f"kernel:lorenzo.reverse:{name}", "n": n,
+              "block": [v for v in view[1:] if v > 1], "equal": diff == 0.0,
+              "max_abs_err": diff, "ms": ms, "plain_ms": plain,
+              "bound_ms": b, "bound_by": by})
+        require(diff == 0.0, f"lorenzo.reverse ({name}) differs from its "
+                f"plain version by {diff}")
+    del delta
     torch.cuda.empty_cache()
 
     # 7-8. interpolation at NYX's first level (axis 0 of the prequantized

@@ -32,6 +32,9 @@ SUBCHUNK = 128       # default gap-array subchunk (symbols per decode unit)
 # bits); recorded by the encoder's decode_meta so a sequential table
 # decoder can specialize on them
 LUT_BUCKETS = (8, 12, 16)
+# peek bits that index the inflate kernel's shared-memory decode table
+# (`DecodeTable.lut`, 16 KB); longer codewords take the interval compare
+LUT_BITS = 12
 _M32 = 0xFFFFFFFF
 
 
@@ -259,14 +262,20 @@ class DecodeTable(NamedTuple):
 
     with thresh[l] = (first_code[l] + count[l]) << (32 - l) and lmask
     enabling 1 <= l < max_len.  This one decoder serves every max-length
-    regime (the reference's LUT variant gives the same symbols)."""
+    regime (the reference's LUT variant gives the same symbols).
+
+    `lut` caches that decode for the first LUT_BITS bits of a peek: entry
+    p is (sym << 6) | len whenever every peek starting with p decodes to
+    the same (sym, len) with len <= LUT_BITS, else 0 (the peek needs the
+    interval compare).  See `build_lut`."""
     cb: Codebook
     thresh: torch.Tensor      # [MAXLEN + 1] uint32 end-of-interval bounds
     lmask: torch.Tensor       # [MAXLEN + 1] int32 validity of each bound
+    lut: torch.Tensor         # [2^LUT_BITS] int32 packed (sym, len) or 0
 
     def to(self, device) -> "DecodeTable":
         return DecodeTable(self.cb.to(device), self.thresh.to(device),
-                           self.lmask.to(device))
+                           self.lmask.to(device), self.lut.to(device))
 
 
 def _length_bounds(cb: Codebook) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -278,12 +287,55 @@ def _length_bounds(cb: Codebook) -> Tuple[torch.Tensor, torch.Tensor]:
     return as_u32(thresh), lmask
 
 
+def peek_decode(peek: torch.Tensor, cb: Codebook, thresh: torch.Tensor,
+                lmask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(symbol int32, codeword length int64) of int64 32-bit left-aligned
+    peeks, by the canonical length-interval compare.  The length is not
+    clamped (the cursor advances by it); the table index uses it clamped
+    to [1, MAXLEN] and the symbol index is clamped to [0, k)."""
+    k = cb.sym_canon.numel()
+    hit = (peek.unsqueeze(-1) >= u32_values(thresh)) & (lmask > 0)
+    ln = 1 + hit.sum(-1)
+    lnc = ln.clamp(1, MAXLEN)
+    code = peek >> (32 - lnc)
+    # u32 difference reinterpreted as int32, as the reference does
+    diff = (((code - u32_values(cb.first_code)[lnc]) & _M32) ^ (1 << 31)) \
+        - (1 << 31)
+    idx = (cb.start_idx.long()[lnc] + diff).clamp(0, k - 1)
+    return cb.sym_canon[idx], ln
+
+
+def build_lut(cb: Codebook, thresh: torch.Tensor, lmask: torch.Tensor
+              ) -> torch.Tensor:
+    """The [2^LUT_BITS] decode table of `DecodeTable.lut`.
+
+    The decoded length is monotone in the peek, so it is constant over
+    the peeks that start with prefix p exactly when it agrees at the
+    lowest and the highest of them; a length <= LUT_BITS then fixes the
+    codeword, hence the symbol, from p alone.  Every other prefix maps to
+    0 and takes the interval compare, so the table gives exactly what
+    `peek_decode` gives for every 32-bit peek, clamps included.  For a
+    complete code with max_len <= LUT_BITS it is the reference's dense
+    (symbol, length) LUT (`repro.core.huffman._build_lut`)."""
+    k = cb.sym_canon.numel()
+    if k >= 1 << 25:
+        raise ValueError(f"{k} symbols do not fit a LUT entry (the symbol "
+                         "must stay below 2^25)")
+    low = torch.arange(1 << LUT_BITS, dtype=torch.int64) << (32 - LUT_BITS)
+    high = low | ((1 << (32 - LUT_BITS)) - 1)
+    sym, ln = peek_decode(low, cb, thresh, lmask)
+    _, ln_high = peek_decode(high, cb, thresh, lmask)
+    ok = (ln == ln_high) & (ln <= LUT_BITS)
+    return torch.where(ok, (sym.long() << 6) | ln, 0).to(torch.int32)
+
+
 def build_decode_table(lengths: torch.Tensor) -> DecodeTable:
-    """Codebook + decode bounds from stored bitlengths, built on the host
-    and moved to the device of `lengths`."""
+    """Codebook, decode bounds and LUT from stored bitlengths, built on
+    the host and moved to the device of `lengths`."""
     cb = canonical_codebook(lengths.detach().to("cpu"))
     thresh, lmask = _length_bounds(cb)
-    return DecodeTable(cb, thresh, lmask).to(lengths.device)
+    lut = build_lut(cb, thresh, lmask)
+    return DecodeTable(cb, thresh, lmask, lut).to(lengths.device)
 
 
 # identity-keyed LRU: repeated decodes of the same stored codebook reuse
@@ -323,16 +375,9 @@ def inflate_gap(words: torch.Tensor, n_valid: torch.Tensor,
         raise ValueError(f"gap array [{nc}, {n_sub}] does not tile chunks "
                          f"of {W} symbols with sub_size={sub_size}")
     dev = words.device
-    cb = table.cb
-    k = cb.sym_canon.numel()
     # a word past the chunk reads as 0
     wext = torch.cat([u32_values(words),
                       torch.zeros(nc, 1, dtype=torch.int64, device=dev)], 1)
-    thresh = u32_values(table.thresh)
-    lmask = table.lmask > 0
-    first_code = u32_values(cb.first_code)
-    start_idx = cb.start_idx.long()
-    sym_canon = cb.sym_canon
     base = torch.arange(n_sub, device=dev) * sub_size
     nv = n_valid.long().unsqueeze(1)
     bitpos = gap_bits.long()
@@ -343,14 +388,8 @@ def inflate_gap(words: torch.Tensor, n_valid: torch.Tensor,
         cur = (torch.gather(wext, 1, wi.clamp(max=W)) << bo) & _M32
         nxt = torch.gather(wext, 1, (wi + 1).clamp(max=W)) >> (32 - bo)
         peek = cur | torch.where(bo > 0, nxt, 0)
-        hit = (peek.unsqueeze(-1) >= thresh) & lmask
-        ln = 1 + hit.sum(-1)
-        lnc = ln.clamp(1, MAXLEN)
-        code = peek >> (32 - lnc)
-        # u32 difference reinterpreted as int32, as the reference does
-        diff = (((code - first_code[lnc]) & _M32) ^ (1 << 31)) - (1 << 31)
-        idx = (start_idx[lnc] + diff).clamp(0, k - 1)
+        sym, ln = peek_decode(peek, table.cb, table.thresh, table.lmask)
         ok = (base + i) < nv
-        out[:, :, i] = torch.where(ok, sym_canon[idx], 0)
+        out[:, :, i] = torch.where(ok, sym, 0)
         bitpos = bitpos + torch.where(ok, ln, 0)
     return out.reshape(nc, W)

@@ -7,10 +7,11 @@
 // Bound on the H100: device memory.  Dual-quant reads 4 B and writes 8 B
 // per value (f32 in; int32 codes and int32 delta out); the reverse reads
 // 4 B and writes 4 B.  The arithmetic is a handful of integer operations
-// per value.  Design: one CTA per Lorenzo block, the block staged once in
-// shared memory, so every global byte moves once and coalesced.
+// per value, so a kernel reaches the bound only if it spends few
+// instructions and no barriers per value.
 //
-// Dual-quant evaluates the N-D first difference directly as the Lorenzo
+// Dual-quant: one CTA per Lorenzo block, the block staged once in shared
+// memory.  It evaluates the N-D first difference directly as the Lorenzo
 // stencil: delta[i] = sum over subsets S of the block axes of
 // (-1)^|S| q[i - sum_{a in S} stride_a], taking only the terms whose
 // coordinates stay inside the block (the zero padding layer).  That is
@@ -26,10 +27,19 @@
 // single rounded multiply (no contraction) and round-half-to-even match
 // the reference bit for bit.
 //
-// The reverse runs a Hillis-Steele inclusive scan along each block axis
-// in shared memory (two buffers, log2(size) steps per axis), then
-// multiplies __int2float_rn(d) by the f32 2*eb.  Integer sums are exact
-// in any order, so the result equals the reference's cumsum bit for bit.
+// Reverse: an inclusive prefix sum along each block axis, then
+// __int2float_rn(d) * f32(2*eb).  For the three default blocks, (256),
+// (16,16) and (8,8,8), one warp owns one Lorenzo block (eight per
+// 256-thread CTA) and never touches shared memory or a barrier: each lane
+// loads 8 or 16 consecutive values with 16 B loads (a warp reads its
+// block's 1 or 2 KB in full 32 B sectors), scans the axis that lies in
+// its registers, and scans the other axes across lanes with
+// __shfl_up_sync (4-5.5 shuffles per value), then stores float4s where it
+// loaded.  Sums are taken in unsigned 32-bit arithmetic, a ring like the
+// reference's int32 cumsum, so any order gives the same bits.  Any other
+// block (the TPU block table, up to four non-unit axes) takes the generic
+// kernel: a Hillis-Steele scan per axis in two shared buffers, log2(size)
+// barriers per axis.
 #include "common.cuh"
 
 namespace {
@@ -117,6 +127,126 @@ __global__ void reverse_kernel(const int* __restrict__ delta,
         out[base + i] = __int2float_rn(src[i]) * two_eb;
 }
 
+// lane's 8 consecutive values at `src`, as unsigned
+__device__ __forceinline__ void load8(const int* src, unsigned v[8]) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(src));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* dst, const unsigned v[8],
+                                       float two_eb) {
+    float4* d = reinterpret_cast<float4*>(dst);
+    d[0] = make_float4(__int2float_rn((int)v[0]) * two_eb,
+                       __int2float_rn((int)v[1]) * two_eb,
+                       __int2float_rn((int)v[2]) * two_eb,
+                       __int2float_rn((int)v[3]) * two_eb);
+    d[1] = make_float4(__int2float_rn((int)v[4]) * two_eb,
+                       __int2float_rn((int)v[5]) * two_eb,
+                       __int2float_rn((int)v[6]) * two_eb,
+                       __int2float_rn((int)v[7]) * two_eb);
+}
+
+__device__ __forceinline__ void scan8(unsigned v[8]) {
+    #pragma unroll
+    for (int i = 1; i < 8; ++i) v[i] += v[i - 1];
+}
+
+// add, to lanes with (lane & (width-1)) >= d, the values of lane - d
+__device__ __forceinline__ void shfl_add(unsigned v[8], int d, int width,
+                                         int lane) {
+    #pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const unsigned t = __shfl_up_sync(0xffffffffu, v[i], d, width);
+        if ((lane & (width - 1)) >= d) v[i] += t;
+    }
+}
+
+constexpr int kWarpsPerCta = 8;
+
+// the warp's Lorenzo block, or -1 past the end
+__device__ __forceinline__ long long warp_block(long long nblocks) {
+    const long long w = (long long)blockIdx.x * kWarpsPerCta +
+                        (threadIdx.x >> 5);
+    return w < nblocks ? w : -1;
+}
+
+// (256): lane j holds values 8j..8j+7
+__global__ void __launch_bounds__(32 * kWarpsPerCta)
+reverse_256_kernel(const int* __restrict__ delta, float* __restrict__ out,
+                   long long nblocks, float two_eb) {
+    const long long w = warp_block(nblocks);
+    if (w < 0) return;
+    const int lane = threadIdx.x & 31;
+    const long long o = w * 256 + lane * 8;
+    unsigned v[8];
+    load8(delta + o, v);
+    scan8(v);
+    unsigned tot = v[7];
+    #pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const unsigned t = __shfl_up_sync(0xffffffffu, tot, d);
+        if (lane >= d) tot += t;
+    }
+    const unsigned excl = tot - v[7];
+    #pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] += excl;
+    store8(out + o, v, two_eb);
+}
+
+// (16, 16): lane j holds row j/2, columns 8(j%2)..8(j%2)+7
+__global__ void __launch_bounds__(32 * kWarpsPerCta)
+reverse_16x16_kernel(const int* __restrict__ delta, float* __restrict__ out,
+                     long long nblocks, float two_eb) {
+    const long long w = warp_block(nblocks);
+    if (w < 0) return;
+    const int lane = threadIdx.x & 31;
+    const long long o = w * 256 + lane * 8;
+    unsigned v[8];
+    load8(delta + o, v);
+    scan8(v);
+    const unsigned left = __shfl_up_sync(0xffffffffu, v[7], 1);
+    if (lane & 1) {
+        #pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] += left;
+    }
+    #pragma unroll
+    for (int d = 2; d < 32; d <<= 1) shfl_add(v, d, 32, lane);  // rows
+    store8(out + o, v, two_eb);
+}
+
+// (8, 8, 8): lane j holds the rows (j/8, j%8) and (4 + j/8, j%8) of the
+// last axis
+__global__ void __launch_bounds__(32 * kWarpsPerCta)
+reverse_8x8x8_kernel(const int* __restrict__ delta, float* __restrict__ out,
+                     long long nblocks, float two_eb) {
+    const long long w = warp_block(nblocks);
+    if (w < 0) return;
+    const int lane = threadIdx.x & 31;
+    const long long o = w * 512 + lane * 8;
+    unsigned a[8], b[8];
+    load8(delta + o, a);
+    load8(delta + o + 256, b);
+    scan8(a);                                        // axis 2
+    scan8(b);
+    #pragma unroll
+    for (int d = 1; d < 8; d <<= 1) {                // axis 1
+        shfl_add(a, d, 8, lane);
+        shfl_add(b, d, 8, lane);
+    }
+    #pragma unroll
+    for (int d = 8; d < 32; d <<= 1) {               // axis 0, within halves
+        shfl_add(a, d, 32, lane);
+        shfl_add(b, d, 32, lane);
+    }
+    #pragma unroll
+    for (int i = 0; i < 8; ++i)                      // axis 0, across halves
+        b[i] += __shfl_sync(0xffffffffu, a[i], 24 + (lane & 7));
+    store8(out + o, a, two_eb);
+    store8(out + o + 256, b, two_eb);
+}
+
 }  // namespace
 
 RT_EXPORT int rt_dualquant(int device, const float* x, int* codes,
@@ -141,12 +271,27 @@ RT_EXPORT int rt_reverse(int device, const int* delta, float* out,
                          float two_eb, void* stream) {
     cudaError_t err = rt_use_device(device);
     if (err != cudaSuccess) return (int)err;
-    const BlockDims d = make_dims(b0, b1, b2, b3);
-    const size_t smem = 2 * (size_t)d.total * sizeof(int);
-    err = rt_allow_smem(reverse_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (nblocks > 0)
-        reverse_kernel<<<(unsigned)nblocks, kThreads, smem,
-                         (cudaStream_t)stream>>>(delta, out, d, two_eb);
+    if (nblocks <= 0) return (int)cudaGetLastError();
+    const bool aligned =
+        (((uintptr_t)delta | (uintptr_t)out) & 15) == 0;
+    const unsigned warps = (unsigned)rt_cdiv(nblocks, kWarpsPerCta);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (aligned && b0 == 1 && b1 == 1 && b2 == 1 && b3 == 256) {
+        reverse_256_kernel<<<warps, 32 * kWarpsPerCta, 0, st>>>(
+            delta, out, nblocks, two_eb);
+    } else if (aligned && b0 == 1 && b1 == 1 && b2 == 16 && b3 == 16) {
+        reverse_16x16_kernel<<<warps, 32 * kWarpsPerCta, 0, st>>>(
+            delta, out, nblocks, two_eb);
+    } else if (aligned && b0 == 1 && b1 == 8 && b2 == 8 && b3 == 8) {
+        reverse_8x8x8_kernel<<<warps, 32 * kWarpsPerCta, 0, st>>>(
+            delta, out, nblocks, two_eb);
+    } else {
+        const BlockDims d = make_dims(b0, b1, b2, b3);
+        const size_t smem = 2 * (size_t)d.total * sizeof(int);
+        err = rt_allow_smem(reverse_kernel, smem);
+        if (err != cudaSuccess) return (int)err;
+        reverse_kernel<<<(unsigned)nblocks, kThreads, smem, st>>>(
+            delta, out, d, two_eb);
+    }
     return (int)cudaGetLastError();
 }

@@ -45,8 +45,8 @@ SIGNATURES = {
     "rt_histogram": [_I, _P, _P, _LL, _I, _P],
     "rt_encode": [_I, _P, _P, _P, _P, _P, _LL, _I, _P],
     "rt_deflate": [_I, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
-    "rt_inflate": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-                   _P],
+    "rt_inflate": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                   _I, _P],
     "rt_interp_residual": [_I, _P, _P, _P, _LL, _LL, _LL, _P],
     "rt_interp_odd": [_I, _P, _P, _P, _LL, _LL, _LL, _P],
     "rt_bitshuffle_encode": [_I, _P, _P, _LL, _LL, _I, _I, _P],

@@ -1,10 +1,14 @@
 """Dispatching wrapper for the gap-array inflate kernel.
 
 Source: `csrc/inflate.cu`, replacing `inflate_pallas`
-(src/repro/kernels/inflate/kernel.py:103).  Bound on the H100: the serial
-walk of `sub_size` dependent steps per cursor (latency, not bytes); one
-thread per subchunk cursor with the canonical tables in shared memory.
-See the source.
+(src/repro/kernels/inflate/kernel.py:103).  Its bytes are almost all the
+4 B written per symbol; what decides its time on the H100 is the work of
+each of the `sub_size` dependent steps per cursor and whether the stores
+coalesce.  One thread per subchunk cursor decodes a step with one
+shared-memory load from the 12-bit LUT of the `DecodeTable` (the interval
+compare only for longer codewords), reads the stream through a register
+bit buffer, and writes through a per-warp shared tile in 64 B runs.  See
+the source.
 
 Only gap-array streams (format v2) decode here.  The reference's
 sequential decoder for gap-less (format v1) streams is not ported yet,
@@ -45,7 +49,8 @@ def inflate_cuda(words: torch.Tensor, n_valid: torch.Tensor,
             ("lmask", table.lmask, torch.int32, (hf.MAXLEN + 1,)),
             ("first_code", cb.first_code, torch.uint32, (hf.MAXLEN + 1,)),
             ("start_idx", cb.start_idx, torch.int32, (hf.MAXLEN + 1,)),
-            ("sym_canon", cb.sym_canon, torch.int32, (k,)))
+            ("sym_canon", cb.sym_canon, torch.int32, (k,)),
+            ("lut", table.lut, torch.int32, (1 << hf.LUT_BITS,)))
     for name, t, dt, shape in args:
         if t.device != dev or dev.type != "cuda" or t.dtype != dt \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -57,7 +62,8 @@ def inflate_cuda(words: torch.Tensor, n_valid: torch.Tensor,
         dev.index, words.data_ptr(), n_valid.data_ptr(), gap_bits.data_ptr(),
         table.thresh.data_ptr(), table.lmask.data_ptr(),
         cb.first_code.data_ptr(), cb.start_idx.data_ptr(),
-        cb.sym_canon.data_ptr(), k, out.data_ptr(), nc, W, int(sub_size),
+        cb.sym_canon.data_ptr(), table.lut.data_ptr(), k, out.data_ptr(),
+        nc, W, int(sub_size),
         _build.stream(dev))
     _build.check("inflate", err)
     KERNEL.launches += 1

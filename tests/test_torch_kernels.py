@@ -383,6 +383,80 @@ class TestInflate:
             t_inflate.inflate(words, nv, table, gaps=None)
 
 
+def _lut_plus_compare(table, peek):
+    """The inflate kernel's step decode: the LUT entry of the peek's first
+    LUT_BITS bits, or the interval compare where the entry is 0."""
+    e = table.lut.long()[peek >> (32 - thf.LUT_BITS)]
+    sym, ln = thf.peek_decode(peek, table.cb, table.thresh, table.lmask)
+    esc = e == 0
+    return torch.where(esc, sym, (e >> 6).to(torch.int32)), \
+        torch.where(esc, ln, e & 63)
+
+
+# codebooks for the LUT: the codebook cases above, and Fibonacci
+# frequencies whose Huffman code reaches max_len 8, 12, 16 and 32 (the
+# buckets of LUT_BUCKETS and MAXLEN)
+LUT_CASES = {**FREQ_CASES, **{
+    f"fibonacci_max_len_{m}": (lambda m=m: np.pad(np.array(_fib(m + 1)),
+                                                  (0, NBINS - m - 1)))
+    for m in (*thf.LUT_BUCKETS, thf.MAXLEN)},
+    "skewed_short": lambda: np.bincount(_skewed_codes(3000, NBINS, 9, 2.0),
+                                        minlength=NBINS)}
+# the cases whose max_len is at most LUT_BITS (12)
+SHORT_LUT_CASES = ("all_ties", "fibonacci_max_len_8", "fibonacci_max_len_12",
+                   "single_symbol", "skewed_short", "two_symbols")
+
+
+class TestInflateLut:
+    """The decode LUT that the inflate kernel reads (`DecodeTable.lut`)."""
+
+    @staticmethod
+    def _table(case):
+        freq = LUT_CASES[case]().astype(np.int32)
+        return thf.build_decode_table(thf.codeword_lengths(
+            torch.from_numpy(freq)))
+
+    @pytest.mark.parametrize("case", SHORT_LUT_CASES)
+    def test_matches_reference_build_lut(self, ref, case):
+        """Where max_len <= LUT_BITS every prefix that starts with a
+        codeword resolves, to the reference's dense (symbol, length)."""
+        table = self._table(case)
+        lengths = table.cb.lengths
+        assert 1 <= int(table.cb.max_len) <= thf.LUT_BITS
+        jcb = ref.hf.canonical_codebook(ref.jnp.asarray(lengths.numpy()))
+        jsym, jlen = ref.hf._build_lut(jcb, thf.LUT_BITS)
+        # canonical codewords cover the left-aligned prefixes [0, covered)
+        used = lengths[lengths > 0].long()
+        covered = int((1 << (thf.LUT_BITS - used)).sum())
+        lut = table.lut.long()[:covered]
+        assert bool((lut != 0).all())
+        _eq((lut >> 6).to(torch.int32).numpy(), np.asarray(jsym)[:covered],
+            "symbol")
+        _eq((lut & 63).to(torch.int32).numpy(), np.asarray(jlen)[:covered],
+            "length")
+
+    @pytest.mark.parametrize("case", sorted(LUT_CASES))
+    def test_lut_plus_compare_equals_interval_decode(self, case):
+        """For every 32-bit peek the LUT path gives exactly the interval
+        compare's (symbol, length): checked at both ends of every LUT_BITS
+        prefix and on random peeks."""
+        table = self._table(case)
+        span = 32 - thf.LUT_BITS
+        prefix = torch.arange(1 << thf.LUT_BITS, dtype=torch.int64) << span
+        rand = torch.from_numpy(np.random.default_rng(7).integers(
+            0, 1 << 32, 1 << 16, dtype=np.int64))
+        for peek in (prefix, prefix | ((1 << span) - 1), rand):
+            want_sym, want_len = thf.peek_decode(peek, table.cb, table.thresh,
+                                                 table.lmask)
+            got_sym, got_len = _lut_plus_compare(table, peek)
+            assert torch.equal(got_sym, want_sym)
+            assert torch.equal(got_len, want_len)
+        resolved = table.lut != 0
+        assert bool(((table.lut & 63)[resolved] <= thf.LUT_BITS).all())
+        if int(table.cb.max_len) > thf.LUT_BITS:
+            assert not bool(resolved.all())
+
+
 # ---------------------------------------------------------------------------
 # On the card: every CUDA kernel against its plain version, exactly
 # ---------------------------------------------------------------------------
@@ -390,7 +464,14 @@ class TestInflate:
 @pytest.mark.cuda
 class TestKernelsOnCard:
     @pytest.mark.parametrize("shape,block", BLOCK_CASES + [
-        ((8, 16, 128), (8, 16, 128)), ((5, 300), (64, 128))])
+        ((8, 16, 128), (8, 16, 128)), ((5, 300), (64, 128)),
+        # the warp-per-block kernels: block counts that do not fill the
+        # last CTA of eight, and a single block
+        ((256 * 21 + 3,), (256,)), ((256,), (256,)),
+        ((16 * 9 + 1, 16 * 5), (16, 16)), ((16, 16), (16, 16)),
+        ((8 * 5, 8 * 3 + 2, 8 * 7), (8, 8, 8)), ((8, 8, 8), (8, 8, 8)),
+        # four non-unit block axes (the generic kernel)
+        ((3, 5, 9, 17), (2, 4, 4, 8))])
     def test_lorenzo(self, cuda_dev, shape, block):
         x = torch.from_numpy(_field(shape, 3, 10.0)).to(cuda_dev)
         xb = tdq.block_split(tdq.pad_to_blocks(x, block), block)
@@ -399,6 +480,22 @@ class TestKernelsOnCard:
         assert torch.equal(kc, pc) and torch.equal(kd, pd)
         kr = t_lorenzo.reverse_blocks(kd, 1e-3, impl="cuda")
         pr = t_lorenzo.reverse_blocks(kd, 1e-3, impl="torch")
+        assert torch.equal(kr.view(torch.int32), pr.view(torch.int32))
+
+    @pytest.mark.parametrize("block", [(256,), (16, 16), (8, 8, 8)])
+    def test_reverse_unaligned_view(self, cuda_dev, block):
+        """A contiguous view that starts 4 B into its storage cannot take
+        the 16 B loads of the warp-per-block kernels; it takes the generic
+        kernel and gives the same bits."""
+        size = int(np.prod(block))
+        rng = np.random.default_rng(4)
+        flat = torch.from_numpy(rng.integers(
+            -500, 500, 1 + 11 * size).astype(np.int32)).to(cuda_dev)
+        nd = len(block)
+        delta = flat[1:].view((11,) + (1,) * (nd - 1) + block)
+        assert delta.data_ptr() % 16 != 0
+        kr = t_lorenzo.reverse_blocks(delta, 1e-3, impl="cuda")
+        pr = t_lorenzo.reverse_blocks(delta, 1e-3, impl="torch")
         assert torch.equal(kr.view(torch.int32), pr.view(torch.int32))
 
     @pytest.mark.parametrize("n,nbins", [(1, 1024), (777, 256),
@@ -435,17 +532,29 @@ class TestKernelsOnCard:
         pdec = t_inflate.inflate(words, nv, table, gaps=gbits, impl="torch")
         assert torch.equal(kdec, pdec)
 
-    @pytest.mark.parametrize("n_sym", [8, 12, 16, 22])
-    def test_inflate_every_bucket(self, cuda_dev, n_sym):
-        codes = torch.from_numpy(_fib_codes(n_sym, seed=1)).to(cuda_dev)
-        freq = np.bincount(_fib_codes(n_sym, seed=1), minlength=NBINS)
+    @pytest.mark.parametrize("n_sym", [8, 12, 16, 22, 33])
+    @pytest.mark.parametrize("cut_last", [False, True])
+    def test_inflate_every_bucket(self, cuda_dev, n_sym, cut_last):
+        """Fibonacci codebooks up to max_len 32 (n_sym 33), against the
+        plain version; `cut_last` ends the last chunk's n_valid short of
+        its symbols, so its later cursors decode nothing."""
+        codes_np = _fib_codes(n_sym, seed=1)
+        codes = torch.from_numpy(codes_np).to(cuda_dev)
+        freq = np.bincount(codes_np, minlength=NBINS)
         cb = thf.canonical_codebook(thf.codeword_lengths(
             torch.from_numpy(freq.astype(np.int32)))).to(cuda_dev)
+        assert int(cb.max_len) == n_sym - 1
         cw, bw = t_encode.encode(codes, cb, impl="cuda")
         words, _, gbits, _ = t_deflate.deflate(cw, bw, 4096, 128, impl="cuda")
         nc = words.shape[0]
         nv = (codes.numel() - torch.arange(nc, device=cuda_dev) * 4096
               ).clamp(0, 4096).to(torch.int32)
-        dec = t_inflate.inflate(words, nv, thf.decode_table(cb.lengths),
-                                gaps=gbits, impl="cuda")
-        assert torch.equal(dec.reshape(-1)[:codes.numel()], codes)
+        if cut_last:
+            nv[-1] = int(nv[-1]) // 2 + 1
+        table = thf.decode_table(cb.lengths)
+        dec = t_inflate.inflate(words, nv, table, gaps=gbits, impl="cuda")
+        plain = t_inflate.inflate(words, nv, table, gaps=gbits, impl="torch")
+        assert torch.equal(dec, plain)
+        n = int(nv.sum())
+        assert torch.equal(dec.reshape(-1)[:n], codes[:n])
+        assert not bool(dec.reshape(-1)[n:].any())
