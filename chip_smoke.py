@@ -17,10 +17,12 @@ Phases, each printing one JSON line:
             kernel, plain and (where one PyTorch call computes the same
             function) library times from CUDA events.  Also: the share
             of inflate steps that take the long-code path, inflate on a
-            max_len-32 stream, lorenzo.reverse on the same bytes as
-            (256) and (16,16) blocks, and the interpolation kernels,
-            untimed, on HACC's first level (one row of 140,476,933
-            values)
+            max_len-32 stream, lorenzo.dualquant and lorenzo.reverse on
+            the same bytes as (256) and (16,16) blocks, dual-quant's
+            generic kernel on an unaligned copy, bitshuffle.decode at
+            chunk 32 (W = 1) and at P = 16 (nbins 65536), and the
+            interpolation kernels, untimed, on HACC's first level (one
+            row of 140,476,933 values)
   golden    the committed cusz v2 fixture re-encoded on the card, byte for
             byte
   quality   the six small scidata fields under each codec, configured as
@@ -260,19 +262,49 @@ def phase_kernels(torch, dev) -> dict:
                 f"by {diff}")
 
     # 1. fused dual-quant: ~20 scalar ops per value (multiply, round, the
-    # 8-term stencil, the cap test)
+    # 8-term stencil, the cap test); then the same bytes as (256) and
+    # (16,16) blocks, and the generic kernel (the one every block took
+    # before the warp-per-block kernels) on an unaligned copy
+    def dualquant_check(v):
+        kc, kd = lorenzo_ops.dualquant_blocks_cuda(v, eb, nbins)
+        pc, pd = lorenzo_ref.dualquant_blocks_ref(v, eb, nbins)
+        torch.cuda.synchronize()
+        return max(max_diff(torch, kc, pc), max_diff(torch, kd, pd))
+
+    diff = dualquant_check(xb)
     codes, delta = lorenzo_ops.dualquant_blocks_cuda(xb, eb, nbins)
-    pc, pd = lorenzo_ref.dualquant_blocks_ref(xb, eb, nbins)
-    torch.cuda.synchronize()
-    diff = max(max_diff(torch, codes, pc), max_diff(torch, delta, pd))
-    del pc, pd
+    buf = torch.empty(n + 4, dtype=torch.float32, device=dev)
+    xu = buf[1:n + 1].view(xb.shape)
+    xu.copy_(xb)
+    generic_diff = dualquant_check(xu)
+    generic_ms = cuda_ms(torch, lambda: lorenzo_ops.dualquant_blocks_cuda(
+        xu, eb, nbins), 10)
+    del buf, xu
+    require(generic_diff == 0.0, "lorenzo.dualquant's generic kernel "
+            f"differs from its plain version by {generic_diff}")
     record("lorenzo.dualquant", diff,
            cuda_ms(torch, lambda: lorenzo_ops.dualquant_blocks_cuda(
                xb, eb, nbins), 10),
            cuda_ms(torch, lambda: lorenzo_ref.dualquant_blocks_ref(
                xb, eb, nbins), 3),
-           12 * n, 20 * n, block=list(block), eb=eb)
-    del xb
+           12 * n, 20 * n, block=list(block), eb=eb,
+           generic_ms=generic_ms, generic_max_abs_err=generic_diff)
+    for view in ((-1, 256), (-1, 1, 16, 16)):
+        v = xb.view(view)
+        diff = dualquant_check(v)
+        b, by = bound_ms(12 * n, 20 * n)
+        ms = cuda_ms(torch, lambda: lorenzo_ops.dualquant_blocks_cuda(
+            v, eb, nbins), 10)
+        plain = cuda_ms(torch, lambda: lorenzo_ref.dualquant_blocks_ref(
+            v, eb, nbins), 3)
+        name = "x".join(str(d) for d in view[-2:] if d > 1)
+        emit({"phase": f"kernel:lorenzo.dualquant:{name}", "n": n,
+              "block": [d for d in view[1:] if d > 1], "equal": diff == 0.0,
+              "max_abs_err": diff, "ms": ms, "plain_ms": plain,
+              "bound_ms": b, "bound_by": by})
+        require(diff == 0.0, f"lorenzo.dualquant ({name}) differs from its "
+                f"plain version by {diff}")
+    del xb, v
 
     # 2. histogram: 1 increment per code
     flat = codes.reshape(-1)
@@ -412,10 +444,12 @@ def phase_kernels(torch, dev) -> dict:
 
     # 9-10. bit planes of fz's codes (Lorenzo 8x8x8 at the same eb) in
     # chunks of 512: ~2P + 6 scalar ops per symbol to encode, ~3P + 6 to
-    # decode
-    codes, _ = lorenzo_ops.dualquant_blocks_cuda(
-        dq.block_split(x, block), eb, nbins)
-    del x
+    # decode; decode also at chunk 32 (W = 1) and at P = 16 (the codes of
+    # nbins 65536)
+    xb = dq.block_split(x, block)
+    codes, _ = lorenzo_ops.dualquant_blocks_cuda(xb, eb, nbins)
+    codes16, _ = lorenzo_ops.dualquant_blocks_cuda(xb, eb, 65536)
+    del x, xb
     codes2 = codes.reshape(-1, 512)
     del codes
     p_count = bits_ops.nplanes(nbins)
@@ -441,7 +475,31 @@ def phase_kernels(torch, dev) -> dict:
                                                                  nbins), 3),
            bs_bytes, (3 * p_count + 6) * codes2.numel(),
            chunks=codes2.shape[0], planes=p_count)
-    del codes2, planes, dec
+    del planes, dec
+    for name, c2, nb in (("W1", codes2.view(-1, 32), nbins),
+                         ("P16", codes16.view(-1, 512), 65536)):
+        pl = bits_ops.encode_planes_cuda(c2, nb)
+        diff = max_diff(torch, pl, bits_ops.ref.encode_planes_ref(c2, nb))
+        dec = bits_ops.decode_planes_cuda(pl, nb)
+        diff = max(diff, max_diff(torch, dec,
+                                  bits_ops.ref.decode_planes_ref(pl, nb)))
+        same = diff == 0.0 and torch.equal(dec, c2)
+        del dec
+        pc = bits_ops.nplanes(nb)
+        b, by = bound_ms(4 * c2.numel() + 4 * pl.numel(),
+                         (3 * pc + 6) * c2.numel())
+        emit({"phase": f"kernel:bitshuffle.decode:{name}", "n": c2.numel(),
+              "chunks": c2.shape[0], "words": pl.shape[2], "planes": pc,
+              "equal": same, "max_abs_err": diff,
+              "ms": cuda_ms(torch, lambda: bits_ops.decode_planes_cuda(
+                  pl, nb), 10),
+              "plain_ms": cuda_ms(torch, lambda: bits_ops.ref.
+                                  decode_planes_ref(pl, nb), 3),
+              "bound_ms": b, "bound_by": by})
+        require(same, f"bitshuffle ({name}) differs from its plain version "
+                f"by {diff}")
+        del pl
+    del codes2, codes16
 
     # the interpolation kernels on HACC's first level: one row of
     # 140,476,933 odds, which only a kernel that tiles the columns covers

@@ -10,13 +10,26 @@
 // per value, so a kernel reaches the bound only if it spends few
 // instructions and no barriers per value.
 //
-// Dual-quant: one CTA per Lorenzo block, the block staged once in shared
-// memory.  It evaluates the N-D first difference directly as the Lorenzo
-// stencil: delta[i] = sum over subsets S of the block axes of
-// (-1)^|S| q[i - sum_{a in S} stride_a], taking only the terms whose
-// coordinates stay inside the block (the zero padding layer).  That is
-// exactly the reference's cascade of (1 - shift) along each axis, because
-// int32 arithmetic is a ring and the terms commute.
+// Dual-quant: for the three default blocks, (256), (16,16) and (8,8,8),
+// one warp owns one Lorenzo block (eight per 256-thread CTA), with the
+// layout of the reverse below: each lane loads 8 or 16 consecutive values
+// with 16 B loads and prequantizes them in registers, takes the first
+// difference along the axis that lies in its registers in place, and
+// along each other axis against the neighbour row fetched by one
+// __shfl_up_sync (or a __shfl_sync where the neighbour row is in a fixed
+// lane), then stores int4s of codes and delta where it loaded.  A first
+// difference needs only the immediate neighbour, so that is at most one
+// shuffle per value per cross-lane axis; no shared memory, no barrier, no
+// runtime divide (the block shape is a compile-time constant of each
+// kernel).  Differences are taken in unsigned 32-bit arithmetic, the
+// reference's int32 ring, so any order gives the same bits.  Any other
+// block, or a buffer that is not 16 B aligned, takes the generic kernel:
+// one CTA per Lorenzo block staged in shared memory, evaluating the N-D
+// first difference directly as the Lorenzo stencil, delta[i] = sum over
+// subsets S of the block axes of (-1)^|S| q[i - sum_{a in S} stride_a],
+// over the terms whose coordinates stay inside the block (the zero
+// padding layer).  That is the reference's cascade of (1 - shift) along
+// each axis, because int32 arithmetic is a ring and the terms commute.
 //
 // PREQUANT is __float2int_rn(__fmul_rn(x, inv_two_eb)) with inv_two_eb =
 // f32(1) / f32(2*eb) computed on the host: the reference writes
@@ -28,18 +41,13 @@
 // the reference bit for bit.
 //
 // Reverse: an inclusive prefix sum along each block axis, then
-// __int2float_rn(d) * f32(2*eb).  For the three default blocks, (256),
-// (16,16) and (8,8,8), one warp owns one Lorenzo block (eight per
-// 256-thread CTA) and never touches shared memory or a barrier: each lane
-// loads 8 or 16 consecutive values with 16 B loads (a warp reads its
-// block's 1 or 2 KB in full 32 B sectors), scans the axis that lies in
-// its registers, and scans the other axes across lanes with
-// __shfl_up_sync (4-5.5 shuffles per value), then stores float4s where it
-// loaded.  Sums are taken in unsigned 32-bit arithmetic, a ring like the
-// reference's int32 cumsum, so any order gives the same bits.  Any other
-// block (the TPU block table, up to four non-unit axes) takes the generic
-// kernel: a Hillis-Steele scan per axis in two shared buffers, log2(size)
-// barriers per axis.
+// __int2float_rn(d) * f32(2*eb).  The default blocks take the same
+// warp-per-block layout, scanning the in-register axis in place and the
+// other axes across lanes with __shfl_up_sync (4-5.5 shuffles per value),
+// then storing float4s.  Any other block (the TPU block table, up to four
+// non-unit axes) or unaligned buffer takes the generic kernel: a
+// Hillis-Steele scan per axis in two shared buffers, log2(size) barriers
+// per axis.
 #include "common.cuh"
 
 namespace {
@@ -247,6 +255,114 @@ reverse_8x8x8_kernel(const int* __restrict__ delta, float* __restrict__ out,
     store8(out + o + 256, b, two_eb);
 }
 
+// lane's 8 consecutive values of x, prequantized, as unsigned
+__device__ __forceinline__ void load8q(const float* src, float inv_two_eb,
+                                       unsigned v[8]) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    #pragma unroll
+    for (int i = 0; i < 8; ++i)
+        v[i] = (unsigned)__float2int_rn(__fmul_rn(f[i], inv_two_eb));
+}
+
+// first difference along the in-register axis; `before` is the value
+// left of v[0] (0 at the block edge)
+__device__ __forceinline__ void diff8(unsigned v[8], unsigned before) {
+    #pragma unroll
+    for (int i = 7; i > 0; --i) v[i] -= v[i - 1];
+    v[0] -= before;
+}
+
+// subtract, on lanes with (lane & (width-1)) >= d, the values of lane - d
+__device__ __forceinline__ void shfl_sub(unsigned v[8], int d, int width,
+                                         int lane) {
+    #pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const unsigned t = __shfl_up_sync(0xffffffffu, v[i], d, width);
+        if ((lane & (width - 1)) >= d) v[i] -= t;
+    }
+}
+
+__device__ __forceinline__ int cap(unsigned d, int radius) {
+    const int di = (int)d;
+    return (di > -radius && di < radius) ? di + radius : 0;
+}
+
+__device__ __forceinline__ void store8q(int* codes, int* delta,
+                                        const unsigned v[8], int radius) {
+    int4* c = reinterpret_cast<int4*>(codes);
+    int4* d = reinterpret_cast<int4*>(delta);
+    c[0] = make_int4(cap(v[0], radius), cap(v[1], radius),
+                     cap(v[2], radius), cap(v[3], radius));
+    c[1] = make_int4(cap(v[4], radius), cap(v[5], radius),
+                     cap(v[6], radius), cap(v[7], radius));
+    d[0] = make_int4((int)v[0], (int)v[1], (int)v[2], (int)v[3]);
+    d[1] = make_int4((int)v[4], (int)v[5], (int)v[6], (int)v[7]);
+}
+
+// (256): lane j holds values 8j..8j+7
+__global__ void __launch_bounds__(32 * kWarpsPerCta)
+dualquant_256_kernel(const float* __restrict__ x, int* __restrict__ codes,
+                     int* __restrict__ delta, long long nblocks,
+                     float inv_two_eb, int radius) {
+    const long long w = warp_block(nblocks);
+    if (w < 0) return;
+    const int lane = threadIdx.x & 31;
+    const long long o = w * 256 + lane * 8;
+    unsigned v[8];
+    load8q(x + o, inv_two_eb, v);
+    const unsigned left = __shfl_up_sync(0xffffffffu, v[7], 1);
+    diff8(v, lane ? left : 0u);
+    store8q(codes + o, delta + o, v, radius);
+}
+
+// (16, 16): lane j holds row j/2, columns 8(j%2)..8(j%2)+7
+__global__ void __launch_bounds__(32 * kWarpsPerCta)
+dualquant_16x16_kernel(const float* __restrict__ x, int* __restrict__ codes,
+                       int* __restrict__ delta, long long nblocks,
+                       float inv_two_eb, int radius) {
+    const long long w = warp_block(nblocks);
+    if (w < 0) return;
+    const int lane = threadIdx.x & 31;
+    const long long o = w * 256 + lane * 8;
+    unsigned v[8];
+    load8q(x + o, inv_two_eb, v);
+    const unsigned left = __shfl_up_sync(0xffffffffu, v[7], 1);
+    diff8(v, (lane & 1) ? left : 0u);                // columns
+    shfl_sub(v, 2, 32, lane);                        // rows
+    store8q(codes + o, delta + o, v, radius);
+}
+
+// (8, 8, 8): lane j holds the rows (j/8, j%8) and (4 + j/8, j%8) of the
+// last axis
+__global__ void __launch_bounds__(32 * kWarpsPerCta)
+dualquant_8x8x8_kernel(const float* __restrict__ x, int* __restrict__ codes,
+                       int* __restrict__ delta, long long nblocks,
+                       float inv_two_eb, int radius) {
+    const long long w = warp_block(nblocks);
+    if (w < 0) return;
+    const int lane = threadIdx.x & 31;
+    const long long o = w * 512 + lane * 8;
+    unsigned a[8], b[8];
+    load8q(x + o, inv_two_eb, a);
+    load8q(x + o + 256, inv_two_eb, b);
+    diff8(a, 0u);                                    // axis 2
+    diff8(b, 0u);
+    shfl_sub(a, 1, 8, lane);                         // axis 1
+    shfl_sub(b, 1, 8, lane);
+    // axis 0: row 4 + j/8 of b follows row 3 + j/8, which is b of lane
+    // j - 8, or a of lane 24 + j for j < 8; lanes 24..31 are read only
+    // by lanes 0..7, so each lane offers one register to one shuffle
+    #pragma unroll
+    for (int i = 0; i < 8; ++i)
+        b[i] -= __shfl_sync(0xffffffffu, lane >= 24 ? a[i] : b[i],
+                            (lane + 24) & 31);
+    shfl_sub(a, 8, 32, lane);                        // axis 0, within a
+    store8q(codes + o, delta + o, a, radius);
+    store8q(codes + o + 256, delta + o + 256, b, radius);
+}
+
 }  // namespace
 
 RT_EXPORT int rt_dualquant(int device, const float* x, int* codes,
@@ -255,14 +371,29 @@ RT_EXPORT int rt_dualquant(int device, const float* x, int* codes,
                            void* stream) {
     cudaError_t err = rt_use_device(device);
     if (err != cudaSuccess) return (int)err;
-    const BlockDims d = make_dims(b0, b1, b2, b3);
-    const size_t smem = (size_t)d.total * sizeof(int);
-    err = rt_allow_smem(dualquant_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (nblocks > 0)
-        dualquant_kernel<<<(unsigned)nblocks, kThreads, smem,
-                           (cudaStream_t)stream>>>(x, codes, delta, d,
-                                                   inv_two_eb, nbins / 2);
+    if (nblocks <= 0) return (int)cudaGetLastError();
+    const bool aligned =
+        (((uintptr_t)x | (uintptr_t)codes | (uintptr_t)delta) & 15) == 0;
+    const unsigned warps = (unsigned)rt_cdiv(nblocks, kWarpsPerCta);
+    const int radius = nbins / 2;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (aligned && b0 == 1 && b1 == 1 && b2 == 1 && b3 == 256) {
+        dualquant_256_kernel<<<warps, 32 * kWarpsPerCta, 0, st>>>(
+            x, codes, delta, nblocks, inv_two_eb, radius);
+    } else if (aligned && b0 == 1 && b1 == 1 && b2 == 16 && b3 == 16) {
+        dualquant_16x16_kernel<<<warps, 32 * kWarpsPerCta, 0, st>>>(
+            x, codes, delta, nblocks, inv_two_eb, radius);
+    } else if (aligned && b0 == 1 && b1 == 8 && b2 == 8 && b3 == 8) {
+        dualquant_8x8x8_kernel<<<warps, 32 * kWarpsPerCta, 0, st>>>(
+            x, codes, delta, nblocks, inv_two_eb, radius);
+    } else {
+        const BlockDims d = make_dims(b0, b1, b2, b3);
+        const size_t smem = (size_t)d.total * sizeof(int);
+        err = rt_allow_smem(dualquant_kernel, smem);
+        if (err != cudaSuccess) return (int)err;
+        dualquant_kernel<<<(unsigned)nblocks, kThreads, smem, st>>>(
+            x, codes, delta, d, inv_two_eb, radius);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,11 @@
 Source: `csrc/bitshuffle.cu`, replacing `encode_planes_pallas` and
 `decode_planes_pallas` (src/repro/kernels/bitshuffle/kernel.py:46, :63).
 Both are bound by device memory on the H100 (4 B of codes against P/8 B
-of planes per symbol); a warp holds 32 consecutive symbols, so one
-`__ballot_sync` per plane is one plane word, and decode reads each plane
-word once per warp as a broadcast.  See the source for the design.
+of planes per symbol).  Encode: a warp holds 32 consecutive symbols, so
+one `__ballot_sync` per plane is one plane word.  Decode: a CTA stages a
+tile of 128 groups' plane words in shared memory with 16 B loads, and
+each thread rebuilds 4 symbols from them with a multiply and byte
+permutes, storing one int4.  See the source for the design.
 """
 from __future__ import annotations
 

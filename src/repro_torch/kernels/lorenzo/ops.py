@@ -3,12 +3,13 @@
 Source: `csrc/lorenzo.cu`, replacing `dualquant_blocks_pallas` and
 `reverse_blocks_pallas` (src/repro/kernels/lorenzo/kernel.py:76, :96).
 Both are bound by device memory on the H100 (12 B and 8 B per value).
-Dual-quant stages one Lorenzo block per CTA in shared memory so every
-byte moves once, coalesced.  The reverse gives one warp to each block of
-the default shapes (256), (16,16) and (8,8,8): 16 B loads and stores,
-the in-register axis scanned in place and the other axes by warp
-shuffles, no shared memory and no barrier; other blocks take a generic
-shared-memory scan.  See the source for the design.
+In both directions one warp owns one block of the default shapes (256),
+(16,16) and (8,8,8): 16 B loads and stores, the in-register axis
+differenced (dual-quant) or scanned (reverse) in place and the other
+axes through warp shuffles, no shared memory, no barrier and no runtime
+divide.  Other blocks, and buffers not 16 B aligned, take a generic
+kernel that stages one block per CTA in shared memory.  See the source
+for the design.
 
 The kernels see blocked data as [nblocks, prod(block)]: `block_split`
 stays in Python.  Block axes of extent 1 are inert (a shift along them

@@ -98,9 +98,14 @@ def _codes(nc, chunk, nbins, seed, spread=None):
 
 
 # (nc, chunk, nbins, spread): odd chunk counts, chunk 32 / 64 / 512,
-# P = 10, 8 and 16 planes
+# P = 1, 8, 10 and 16 planes.  The decode kernel's tile is 128 groups
+# (128 / W chunks): 130 chunks of 32 and 21 of 64 leave the last tile
+# part full; chunks of 8192 and 4160 (W = 256, 130) span two tiles, the
+# latter with 4 B staging (W not a multiple of 4)
 PLANE_CASES = [(3, 512, 1024, None), (7, 32, 1024, 2.0), (5, 64, 256, 1.0),
-               (2, 96, 65536, None), (9, 512, 65536, 40.0)]
+               (2, 96, 65536, None), (9, 512, 65536, 40.0),
+               (130, 32, 2, 0.5), (21, 64, 1024, 3.0),
+               (3, 8192, 256, None), (2, 4160, 1024, 2.0)]
 
 
 # ---------------------------------------------------------------------------

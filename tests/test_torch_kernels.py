@@ -83,6 +83,10 @@ BLOCK_CASES = [
 ]
 
 
+# the blocks with a warp-per-block kernel in both directions
+DEFAULT_BLOCKS = [(256,), (16, 16), (8, 8, 8)]
+
+
 def _blocked_pair(ref, shape, block, seed=0, scale=1.0):
     x = _field(shape, seed, scale)
     jb = ref.dq.block_split(ref.dq.pad_to_blocks(ref.jnp.asarray(x), block),
@@ -465,8 +469,8 @@ class TestInflateLut:
 class TestKernelsOnCard:
     @pytest.mark.parametrize("shape,block", BLOCK_CASES + [
         ((8, 16, 128), (8, 16, 128)), ((5, 300), (64, 128)),
-        # the warp-per-block kernels: block counts that do not fill the
-        # last CTA of eight, and a single block
+        # the warp-per-block kernels (both directions): block counts that
+        # do not fill the last CTA of eight, and a single block
         ((256 * 21 + 3,), (256,)), ((256,), (256,)),
         ((16 * 9 + 1, 16 * 5), (16, 16)), ((16, 16), (16, 16)),
         ((8 * 5, 8 * 3 + 2, 8 * 7), (8, 8, 8)), ((8, 8, 8), (8, 8, 8)),
@@ -475,6 +479,8 @@ class TestKernelsOnCard:
     def test_lorenzo(self, cuda_dev, shape, block):
         x = torch.from_numpy(_field(shape, 3, 10.0)).to(cuda_dev)
         xb = tdq.block_split(tdq.pad_to_blocks(x, block), block)
+        if block in DEFAULT_BLOCKS:     # reaches the warp-per-block kernels
+            assert xb.data_ptr() % 16 == 0
         kc, kd = t_lorenzo.dualquant_blocks(xb, 1e-3, NBINS, impl="cuda")
         pc, pd = t_lorenzo.dualquant_blocks(xb, 1e-3, NBINS, impl="torch")
         assert torch.equal(kc, pc) and torch.equal(kd, pd)
@@ -482,21 +488,32 @@ class TestKernelsOnCard:
         pr = t_lorenzo.reverse_blocks(kd, 1e-3, impl="torch")
         assert torch.equal(kr.view(torch.int32), pr.view(torch.int32))
 
-    @pytest.mark.parametrize("block", [(256,), (16, 16), (8, 8, 8)])
-    def test_reverse_unaligned_view(self, cuda_dev, block):
+    @pytest.mark.parametrize("direction", ["dualquant", "reverse"])
+    @pytest.mark.parametrize("block", DEFAULT_BLOCKS)
+    def test_reverse_unaligned_view(self, cuda_dev, block, direction):
         """A contiguous view that starts 4 B into its storage cannot take
-        the 16 B loads of the warp-per-block kernels; it takes the generic
-        kernel and gives the same bits."""
+        the 16 B loads of the warp-per-block kernels; in either direction
+        it takes the generic kernel and gives the same bits."""
         size = int(np.prod(block))
+        shape = (11,) + (1,) * (len(block) - 1) + block
         rng = np.random.default_rng(4)
-        flat = torch.from_numpy(rng.integers(
-            -500, 500, 1 + 11 * size).astype(np.int32)).to(cuda_dev)
-        nd = len(block)
-        delta = flat[1:].view((11,) + (1,) * (nd - 1) + block)
-        assert delta.data_ptr() % 16 != 0
-        kr = t_lorenzo.reverse_blocks(delta, 1e-3, impl="cuda")
-        pr = t_lorenzo.reverse_blocks(delta, 1e-3, impl="torch")
-        assert torch.equal(kr.view(torch.int32), pr.view(torch.int32))
+        if direction == "reverse":
+            flat = torch.from_numpy(rng.integers(
+                -500, 500, 1 + 11 * size).astype(np.int32)).to(cuda_dev)
+            delta = flat[1:].view(shape)
+            assert delta.data_ptr() % 16 != 0
+            kr = t_lorenzo.reverse_blocks(delta, 1e-3, impl="cuda")
+            pr = t_lorenzo.reverse_blocks(delta, 1e-3, impl="torch")
+            assert torch.equal(kr.view(torch.int32), pr.view(torch.int32))
+        else:
+            flat = torch.from_numpy(_field((1 + 11 * size,), 4, 10.0)
+                                    ).to(cuda_dev)
+            xb = flat[1:].view(shape)
+            assert xb.data_ptr() % 16 != 0
+            kc, kd = t_lorenzo.dualquant_blocks(xb, 1e-3, NBINS, impl="cuda")
+            pc, pd = t_lorenzo.dualquant_blocks(xb, 1e-3, NBINS,
+                                                impl="torch")
+            assert torch.equal(kc, pc) and torch.equal(kd, pd)
 
     @pytest.mark.parametrize("n,nbins", [(1, 1024), (777, 256),
                                          (300_001, 1024)])
