@@ -19,10 +19,13 @@ Phases, each printing one JSON line:
             of inflate steps that take the long-code path, inflate on a
             max_len-32 stream, lorenzo.dualquant and lorenzo.reverse on
             the same bytes as (256) and (16,16) blocks, dual-quant's
-            generic kernel on an unaligned copy, bitshuffle.decode at
-            chunk 32 (W = 1) and at P = 16 (nbins 65536), and the
-            interpolation kernels, untimed, on HACC's first level (one
-            row of 140,476,933 values)
+            generic kernel and bitshuffle.encode on unaligned copies,
+            bitshuffle.encode and .decode at chunk 32 (W = 1) and at
+            P = 16 (nbins 65536), and the interpolation kernels,
+            untimed, on HACC's first level (one row of 140,476,933
+            values)
+  yardstick:copy  `copy_` of the NYX codes (4 B read and 4 B written per
+            symbol): the rate the card reaches on read+write traffic
   golden    the committed cusz v2 fixture re-encoded on the card, byte for
             byte
   quality   the six small scidata fields under each codec, configured as
@@ -444,8 +447,9 @@ def phase_kernels(torch, dev) -> dict:
 
     # 9-10. bit planes of fz's codes (Lorenzo 8x8x8 at the same eb) in
     # chunks of 512: ~2P + 6 scalar ops per symbol to encode, ~3P + 6 to
-    # decode; decode also at chunk 32 (W = 1) and at P = 16 (the codes of
-    # nbins 65536)
+    # decode; the encode also on an unaligned copy of the codes (its bulk
+    # copy then moves the 16 B-aligned window around each tile); both also
+    # at chunk 32 (W = 1) and at P = 16 (the codes of nbins 65536)
     xb = dq.block_split(x, block)
     codes, _ = lorenzo_ops.dualquant_blocks_cuda(xb, eb, nbins)
     codes16, _ = lorenzo_ops.dualquant_blocks_cuda(xb, eb, 65536)
@@ -456,6 +460,16 @@ def phase_kernels(torch, dev) -> dict:
     planes = bits_ops.encode_planes_cuda(codes2, nbins)
     diff = max_diff(torch, planes,
                     bits_ops.ref.encode_planes_ref(codes2, nbins))
+    buf = torch.empty(codes2.numel() + 4, dtype=torch.int32, device=dev)
+    cu = buf[1:codes2.numel() + 1].view(codes2.shape)
+    cu.copy_(codes2)
+    unaligned_diff = max_diff(torch, bits_ops.encode_planes_cuda(cu, nbins),
+                              planes)
+    unaligned_ms = cuda_ms(torch, lambda: bits_ops.encode_planes_cuda(
+        cu, nbins), 10)
+    del buf, cu
+    require(unaligned_diff == 0.0, "bitshuffle.encode on an unaligned copy "
+            f"differs from the aligned one by {unaligned_diff}")
     bs_bytes = 4 * codes2.numel() + 4 * planes.numel()
     record("bitshuffle.encode", diff,
            cuda_ms(torch, lambda: bits_ops.encode_planes_cuda(codes2, nbins),
@@ -463,7 +477,8 @@ def phase_kernels(torch, dev) -> dict:
            cuda_ms(torch, lambda: bits_ops.ref.encode_planes_ref(codes2,
                                                                  nbins), 3),
            bs_bytes, (2 * p_count + 6) * codes2.numel(),
-           chunks=codes2.shape[0], planes=p_count)
+           chunks=codes2.shape[0], planes=p_count, unaligned_ms=unaligned_ms,
+           unaligned_max_abs_err=unaligned_diff)
     dec = bits_ops.decode_planes_cuda(planes, nbins)
     diff = max_diff(torch, dec, bits_ops.ref.decode_planes_ref(planes, nbins))
     require(torch.equal(dec, codes2), "bitshuffle.decode does not invert "
@@ -479,27 +494,44 @@ def phase_kernels(torch, dev) -> dict:
     for name, c2, nb in (("W1", codes2.view(-1, 32), nbins),
                          ("P16", codes16.view(-1, 512), 65536)):
         pl = bits_ops.encode_planes_cuda(c2, nb)
-        diff = max_diff(torch, pl, bits_ops.ref.encode_planes_ref(c2, nb))
+        enc_diff = max_diff(torch, pl, bits_ops.ref.encode_planes_ref(c2, nb))
         dec = bits_ops.decode_planes_cuda(pl, nb)
-        diff = max(diff, max_diff(torch, dec,
-                                  bits_ops.ref.decode_planes_ref(pl, nb)))
-        same = diff == 0.0 and torch.equal(dec, c2)
+        dec_diff = max_diff(torch, dec,
+                            bits_ops.ref.decode_planes_ref(pl, nb))
+        same = torch.equal(dec, c2)
         del dec
         pc = bits_ops.nplanes(nb)
-        b, by = bound_ms(4 * c2.numel() + 4 * pl.numel(),
-                         (3 * pc + 6) * c2.numel())
-        emit({"phase": f"kernel:bitshuffle.decode:{name}", "n": c2.numel(),
-              "chunks": c2.shape[0], "words": pl.shape[2], "planes": pc,
-              "equal": same, "max_abs_err": diff,
-              "ms": cuda_ms(torch, lambda: bits_ops.decode_planes_cuda(
-                  pl, nb), 10),
-              "plain_ms": cuda_ms(torch, lambda: bits_ops.ref.
-                                  decode_planes_ref(pl, nb), 3),
-              "bound_ms": b, "bound_by": by})
-        require(same, f"bitshuffle ({name}) differs from its plain version "
-                f"by {diff}")
+        nbytes = 4 * c2.numel() + 4 * pl.numel()
+        shape = {"n": c2.numel(), "chunks": c2.shape[0],
+                 "words": pl.shape[2], "planes": pc}
+        for kname, kdiff, ops_per, fn, plain in (
+                ("encode", enc_diff, 2 * pc + 6,
+                 lambda: bits_ops.encode_planes_cuda(c2, nb),
+                 lambda: bits_ops.ref.encode_planes_ref(c2, nb)),
+                ("decode", dec_diff, 3 * pc + 6,
+                 lambda: bits_ops.decode_planes_cuda(pl, nb),
+                 lambda: bits_ops.ref.decode_planes_ref(pl, nb))):
+            b, by = bound_ms(nbytes, ops_per * c2.numel())
+            emit({"phase": f"kernel:bitshuffle.{kname}:{name}", **shape,
+                  "equal": kdiff == 0.0 and same, "max_abs_err": kdiff,
+                  "ms": cuda_ms(torch, fn, 10),
+                  "plain_ms": cuda_ms(torch, plain, 3),
+                  "bound_ms": b, "bound_by": by})
+        require(enc_diff == 0.0 and dec_diff == 0.0 and same,
+                f"bitshuffle ({name}) differs from its plain version: "
+                f"encode by {enc_diff}, decode by {dec_diff}, inverse {same}")
         del pl
-    del codes2, codes16
+
+    # the card's own rate on read+write traffic: one copy of the NYX codes
+    # (4 B read and 4 B written per symbol), the yardstick beside the
+    # bounds of the kernels above
+    dst = torch.empty_like(codes2)
+    copy_ms = cuda_ms(torch, lambda: dst.copy_(codes2), 10)
+    b, by = bound_ms(8 * codes2.numel(), 0)
+    emit({"phase": "yardstick:copy", "n": codes2.numel(),
+          "bytes": 8 * codes2.numel(), "ms": copy_ms, "bound_ms": b,
+          "TBps": 8 * codes2.numel() / copy_ms / 1e9})
+    del dst, codes2, codes16
 
     # the interpolation kernels on HACC's first level: one row of
     # 140,476,933 odds, which only a kernel that tiles the columns covers

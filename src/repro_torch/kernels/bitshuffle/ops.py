@@ -3,11 +3,16 @@
 Source: `csrc/bitshuffle.cu`, replacing `encode_planes_pallas` and
 `decode_planes_pallas` (src/repro/kernels/bitshuffle/kernel.py:46, :63).
 Both are bound by device memory on the H100 (4 B of codes against P/8 B
-of planes per symbol).  Encode: a warp holds 32 consecutive symbols, so
-one `__ballot_sync` per plane is one plane word.  Decode: a CTA stages a
-tile of 128 groups' plane words in shared memory with 16 B loads, and
-each thread rebuilds 4 symbols from them with a multiply and byte
-permutes, storing one int4.  See the source for the design.
+of planes per symbol), and both work on tiles of 128 groups (4096
+symbols).  Encode: a CTA stages the tile's contiguous run of codes in
+shared memory with one bulk copy of the 16 B-aligned window around it
+(so a view with a storage offset takes the same path); a warp zigzags
+groups of 32 symbols and transposes them as 32x32 bit matrices in five
+shuffle stages, up to three groups per matrix, so lane p holds plane p's
+word; the tile's plane rows leave as coalesced stores.  Decode: a CTA
+stages the tile's plane words with 16 B loads, and each thread rebuilds
+4 symbols from them with a multiply and byte permutes, storing one int4.
+See the source for the design.
 """
 from __future__ import annotations
 

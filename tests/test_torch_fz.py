@@ -98,14 +98,19 @@ def _codes(nc, chunk, nbins, seed, spread=None):
 
 
 # (nc, chunk, nbins, spread): odd chunk counts, chunk 32 / 64 / 512,
-# P = 1, 8, 10 and 16 planes.  The decode kernel's tile is 128 groups
-# (128 / W chunks): 130 chunks of 32 and 21 of 64 leave the last tile
-# part full; chunks of 8192 and 4160 (W = 256, 130) span two tiles, the
-# latter with 4 B staging (W not a multiple of 4)
+# P = 1, 8, 10, 16 and 17 planes.  Both kernels' tile is 128 groups
+# (128 / S chunks, S = W rounded up to a power of two): 130 chunks of 32
+# and 21 of 64 leave the last tile part full, one chunk of 32 is a
+# single partial tile, 37 chunks of 96 (W = 3, 32 per tile) leave a tail
+# of 5 with rows that are not a power of two; chunks of 4096 (W = 128)
+# fill one tile each; chunks of 8192 and 4160 (W = 256, 130) span two
+# tiles, the latter with 4 B staging (W not a multiple of 4)
 PLANE_CASES = [(3, 512, 1024, None), (7, 32, 1024, 2.0), (5, 64, 256, 1.0),
                (2, 96, 65536, None), (9, 512, 65536, 40.0),
                (130, 32, 2, 0.5), (21, 64, 1024, 3.0),
-               (3, 8192, 256, None), (2, 4160, 1024, 2.0)]
+               (3, 8192, 256, None), (2, 4160, 1024, 2.0),
+               (1, 32, 1024, 2.0), (3, 4096, 1024, 3.0),
+               (4, 256, 65537, None), (37, 96, 4096, 4.0)]
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +355,25 @@ class TestBitshuffleOnCard:
         assert torch.equal(back, t_bits.decode_planes(k, nbins,
                                                       impl="torch"))
         assert torch.equal(back, codes)
+
+    @pytest.mark.parametrize("offset", [1, 2, 3])
+    @pytest.mark.parametrize("nc,chunk,nbins,spread", [
+        (130, 32, 2, 0.5), (2, 4160, 1024, 2.0), (262_144, 512, 1024, 2.0)])
+    def test_encode_unaligned_base_matches_plain(self, cuda_dev, offset, nc,
+                                                 chunk, nbins, spread):
+        """A contiguous view whose base is not 16 B aligned: the kernel's
+        bulk copy moves the aligned window around each tile's codes and
+        starts `offset` ints into it."""
+        codes = torch.from_numpy(_codes(nc, chunk, nbins, seed=nc + offset,
+                                        spread=spread)).to(cuda_dev)
+        buf = torch.empty(codes.numel() + offset, dtype=torch.int32,
+                          device=cuda_dev)
+        view = buf[offset:].view(nc, chunk)
+        view.copy_(codes)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        k = t_bits.encode_planes(view, nbins, impl="cuda")
+        p = t_bits.encode_planes(codes, nbins, impl="torch")
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
 
     def test_codec_on_card_matches_cpu(self, cuda_dev):
         codec = tcodecs.get("fz", **QUALITY_KW)
