@@ -37,6 +37,23 @@ Phases, each printing one JSON line:
             counts are set to 0 before each codec's path and read after
             it ("main:<field>" and "main:launches" are cusz's,
             "main:cusz-i:<field>", "main:fz:<field>" the others')
+  v1        cusz's NYX 512^3 container with its gap arrays stripped
+            (format v1) decoded in device and packed form by the
+            sequential decoder, bit-identical to the gap-array decode
+  codecs:*  a qwen3-4b MLP weight ([2560, 9728] f32, numpy from --seed)
+            through every registry id: encode, pack, packed and
+            device-form decode, each codec's bound
+  kv:*      the prefill -> decode handoff K tensor of one 32k-token
+            sequence at qwen3-4b's width and depth ([36, 1, 32768, 8,
+            128] bf16) over the four wires at 256 slabs, then 4 pages
+            evicted and adopted on the int8-block wire
+  checkpoint  qwen3-4b's tied embedding plus one decoder block (490 M
+            f32 values, numpy from --seed) saved at 4 shards through an
+            AsyncWriter and loaded on the card
+
+Each of the last four is driven with the launch counts set to 0 just
+before it and read just after it; "timing" lines give each phase's
+seconds; `--seed` sets the data of the last three.
 
 then the `{"kernels": [...]}` summary and, last, the device line.  Any
 failed check raises, so the script exits nonzero; without a CUDA device it
@@ -45,10 +62,12 @@ chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,6 +114,14 @@ KERNELS = {
     "bitshuffle.decode": ("src/repro_torch/csrc/bitshuffle.cu",
                           "src/repro/kernels/bitshuffle/kernel.py:63"),
 }
+
+# qwen3-4b (src/repro/configs/qwen3_4b.py): the widths of the consumer
+# phases
+QWEN3_4B = dict(n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8,
+                d_ff=9728, vocab=151936, head_dim=128)
+# the KV handoff: one 32k-token sequence in 256 wire slabs (the default
+# slab of 128 tokens)
+KV_SEQ, KV_SLABS = 32768, 256
 
 # codec -> the kernels its path must launch
 PATH_KERNELS = {
@@ -693,7 +720,380 @@ def phase_main(torch, dev) -> dict:
     return per_codec
 
 
+def strip_gaps(codecs, c):
+    """The format-v1 (gap-less) form of a cusz container."""
+    import dataclasses
+    return codecs.Container(
+        dataclasses.replace(c.header.without_params("sub_size"), version=1),
+        {k: v for k, v in c.payload.items()
+         if k not in ("gap_bits", "gap_syms")})
+
+
+def phase_v1(torch, dev) -> dict:
+    """cusz's NYX 512^3 container without its gap arrays (format v1):
+    the sequential decoder in device and packed form, bit-identical to
+    the gap-array decode of the same stream."""
+    from repro_torch import codecs
+    from repro_torch.core import huffman as hf
+    from repro_torch.data import scidata
+    from repro_torch.kernels import dispatch
+
+    x = scidata.nyx_like((512, 512, 512), seed=3, device=dev)
+    codec = codecs.get("cusz", **QUALITY_KW["cusz"])
+    dispatch.reset_launches()
+    c = codec.encode(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gap = codecs.decode(c)
+    torch.cuda.synchronize()
+    t_gap = time.perf_counter() - t0
+    v1 = strip_gaps(codecs, c)
+    t0 = time.perf_counter()
+    y = codecs.decode(v1)
+    torch.cuda.synchronize()
+    t_v1 = time.perf_counter() - t0
+    same_dev = torch.equal(y.view(torch.int32), gap.view(torch.int32))
+    del y
+    p = codec.pack(v1)
+    t0 = time.perf_counter()
+    yp = codecs.decode(p, device=dev)
+    torch.cuda.synchronize()
+    t_v1p = time.perf_counter() - t0
+    same_packed = torch.equal(yp.view(torch.int32), gap.view(torch.int32))
+    counts = dispatch.launch_counts()
+    max_len = int(c.payload["max_len"])
+    emit({"phase": "v1", "field": "nyx", "shape": list(x.shape),
+          "max_len": max_len, "bucket": hf.bucket_max_len(max_len),
+          "decoder": "bitscan" if hf.bucket_max_len(max_len)
+          > hf.SEQ_LUT_BITS else "lut",
+          "chunks": int(c.payload["words"].shape[0]),
+          "max_bits_used": int(c.payload["bits_used"].max()),
+          "gap_decode_s": t_gap, "v1_decode_device_form_s": t_v1,
+          "v1_decode_packed_s": t_v1p, "gap_arrays_in_packed": sorted(
+              k for k in p.payload if k.startswith("gap")),
+          "equal_device_form": same_dev, "equal_packed": same_packed,
+          "launches": {k: v for k, v in counts.items() if v}})
+    require(same_dev and same_packed and "gap_bits" not in p.payload,
+            f"v1 decode differs from the gap decode (device form "
+            f"{same_dev}, packed {same_packed})")
+    # the v1 decode launches no inflate: only the gap decode did
+    require(counts["inflate"] == 1 and counts["lorenzo.reverse"] == 3,
+            f"v1 launch counts {counts}")
+    del x, c, gap, yp, v1, p
+    torch.cuda.empty_cache()
+    return counts
+
+
+def consumer_codec(codecs, name: str):
+    """Every registry id as the consumer phases configure it: the staged
+    codecs at eb 1e-4 valrel with full outlier capacity, int8-block along
+    the last axis in blocks of 128, zfp at its default 12 bits."""
+    if name in ("cusz", "cusz-i", "fz"):
+        return codecs.get(name, eb=1e-4, eb_mode="valrel", outlier_frac=1.0)
+    return codecs.get(name)
+
+
+def int8_tolerance(torch, c, x, name: str):
+    """Per-element bound of the int8 family: scale/2 plus one ulp of
+    max|x| (the float32 dequantize rounds once more)."""
+    scale = c.payload["scale"]
+    if name == "int8-block":
+        axis = int(c.header.param("axis"))
+        scale = scale.repeat_interleave(int(c.header.param("block")),
+                                        dim=axis)
+    amax = float(x.abs().max())
+    return scale / 2 + 2.0 ** math.floor(math.log2(amax)) * 2.0 ** -23
+
+
+def phase_codecs(torch, dev, seed: int) -> dict:
+    """A full-width qwen3-4b MLP weight through every registry id."""
+    import numpy as np
+
+    from repro_torch import codecs
+    from repro_torch.core import metrics as M
+    from repro_torch.kernels import dispatch
+
+    shape = (QWEN3_4B["d_model"], QWEN3_4B["d_ff"])
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                         * np.float32(0.02)).to(dev)
+    raw = w.numel() * 4
+    total = {k: 0 for k in dispatch.launch_counts()}
+    for name in codecs.names():
+        codec = consumer_codec(codecs, name)
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        c = codec.encode(w)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p = codec.pack(c)
+        t_pack = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y = codecs.decode(p, device=dev)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        y_dev = codecs.decode(c)
+        torch.cuda.synchronize()
+        t_dec_dev = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        same_forms = torch.equal(y, y_dev)
+        stored = codec.stored_nbytes(c) if name == "zfp" else p.nbytes
+        err = M.max_abs_err(w, y)
+        rec = {"phase": f"codecs:{name}", "shape": list(shape),
+               "raw_bytes": raw, "stored_bytes": stored,
+               "ratio": raw / stored, "encode_s": t_enc, "pack_s": t_pack,
+               "decode_packed_s": t_dec, "decode_device_form_s": t_dec_dev,
+               "max_abs_err": err, "forms_equal": same_forms,
+               "launches": {k: v for k, v in counts.items() if v}}
+        if name in ("cusz", "cusz-i", "fz"):
+            eb = float(c.header.param("eb"))
+            held = M.verify_error_bound(w, y, eb)
+            rec.update(eb=eb, bound_held=held)
+        elif name == "lossless":
+            held = torch.equal(y, w)
+        elif name == "zfp":
+            rate = codec.achieved_bitrate(c)
+            held = rate == codec.planes + 16.0 / 16 \
+                and stored == math.ceil(rate * w.numel() / 8) \
+                and bool(torch.isfinite(y).all())
+            rec.update(bits_per_value=rate, stored_bits_per_value=stored
+                       * 8 / w.numel())
+        else:
+            held = bool(((y - w).abs() <= int8_tolerance(torch, c, w, name)
+                         ).all())
+        rec["bound_held"] = held
+        emit(rec)
+        require(held and same_forms and tuple(y.shape) == shape,
+                f"codecs {name}: bound held {held}, packed and device "
+                f"forms equal {same_forms}")
+        for k, v in counts.items():
+            total[k] += v
+        del c, p, y, y_dev
+    require(all(total[k] > 0 for k in set(PATH_KERNELS["cusz"])
+                | set(PATH_KERNELS["cusz-i"]) | set(PATH_KERNELS["fz"])),
+            f"codecs: kernels not launched: {total}")
+    del w
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_kv(torch, dev, seed: int) -> dict:
+    """The prefill -> decode handoff of one 32k-token sequence at
+    qwen3-4b's width and depth: the K tensor over the four wires, then
+    page eviction and adoption on the int8-block wire."""
+    from repro_torch.core import kvcache as KV
+    from repro_torch.kernels import dispatch
+
+    seq_axis = 2                                 # [n_periods, B, S, Hkv, D]
+    shape = (QWEN3_4B["n_layers"], 1, KV_SEQ, QWEN3_4B["n_kv_heads"],
+             QWEN3_4B["head_dim"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    k = torch.randn(shape, generator=g, device=dev, dtype=torch.float32
+                    ).to(torch.bfloat16)
+    raw = k.numel() * k.element_size()
+    nslabs = KV_SLABS
+    total = {name: 0 for name in dispatch.launch_counts()}
+    for wire in ("int8-block", "cusz", "fz", "lossless"):
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        src = KV.kv_quantize(k, seq_axis) if wire == "int8-block" else k
+        parts = KV.kv_wire_encode(src, seq_axis, wire=wire, nslabs=nslabs)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        nbytes = KV.kv_wire_nbytes(parts)
+        t0 = time.perf_counter()
+        if wire == "int8-block":
+            got = KV.kv_wire_adopt(parts, seq_axis, device=dev)
+        else:
+            got = KV.kv_wire_restore(parts, seq_axis, device=dev)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        rec = {"phase": f"kv:{wire}", "shape": list(shape),
+               "dtype": "bfloat16", "nslabs": len(parts),
+               "raw_bytes": raw, "wire_bytes": nbytes,
+               "ratio": raw / nbytes, "encode_s": t_enc,
+               "restore_s": t_dec,
+               "codecs": sorted({p.header.codec for p in parts}),
+               "launches": {n: v for n, v in counts.items() if v}}
+        if wire == "int8-block":
+            ok = torch.equal(got.q, src.q) and torch.equal(
+                got.scale.view(torch.int32), src.scale.view(torch.int32))
+            rec["bit_exact"] = ok
+            qkv = src
+        elif wire == "lossless":
+            ok = torch.equal(got.view(torch.int16), k.view(torch.int16))
+            rec["bit_exact"] = ok
+        else:
+            # each slab within its eb (eb_valrel x the slab's range), plus
+            # the bf16 rounding of the restored value
+            step = shape[seq_axis] // nslabs
+            worst, ok = 0.0, True
+            for i, p in enumerate(parts):
+                sl = slice(i * step, (i + 1) * step)
+                ref_s = k[:, :, sl].float()
+                err = float((got[:, :, sl].float() - ref_s).abs().max())
+                amax = float(ref_s.abs().max())
+                tol = float(p.header.param("eb")) \
+                    + 2.0 ** math.floor(math.log2(amax)) * 2.0 ** -8
+                worst = max(worst, err / tol)
+                ok &= err <= tol
+            rec.update(max_err_over_bound=worst, bound_held=ok)
+            missing = [n for n in PATH_KERNELS[wire] if counts[n] == 0]
+            rec["kernels_missing"] = missing
+            ok &= not missing
+        emit(rec)
+        require(ok, f"kv {wire}: {rec}")
+        for n, v in counts.items():
+            total[n] += v
+        del parts, got
+        torch.cuda.empty_cache()
+    del k
+    # evict and adopt 4 pages of the int8-block cache
+    dispatch.reset_launches()
+    n_pages = KV.kv_page_count(KV_SEQ)
+    ids = (0, n_pages // 3, 2 * n_pages // 3, n_pages - 1)
+    t0 = time.perf_counter()
+    pages = [KV.kv_page_slice(qkv, seq_axis, i) for i in ids]
+    wire = [KV.kv_page_encode(p, seq_axis) for p in pages]
+    back = KV.kv_page_concat([KV.kv_page_adopt(w, seq_axis, device=dev)
+                              for w in wire], seq_axis)
+    torch.cuda.synchronize()
+    t_pages = time.perf_counter() - t0
+    want = KV.kv_page_concat(pages, seq_axis)
+    ok = torch.equal(back.q, want.q) and torch.equal(back.scale, want.scale)
+    emit({"phase": "kv:pages", "pages": list(ids),
+          "page_bytes": KV.kv_wire_nbytes(wire[0]), "seconds": t_pages,
+          "bit_exact": ok})
+    require(ok, "kv pages: adopted pages differ from the evicted ones")
+    del qkv, pages, wire, back, want
+    torch.cuda.empty_cache()
+    return total
+
+
+def qwen3_tree(torch, dev, seed: int) -> dict:
+    """qwen3-4b's tied embedding and one decoder block at full width,
+    numpy normal x 0.02 from `seed`."""
+    import numpy as np
+
+    d, f = QWEN3_4B["d_model"], QWEN3_4B["d_ff"]
+    hd = QWEN3_4B["head_dim"]
+    q, kv = QWEN3_4B["n_heads"] * hd, QWEN3_4B["n_kv_heads"] * hd
+    rng = np.random.default_rng(seed)
+
+    def draw(*shp):
+        return torch.from_numpy(rng.standard_normal(shp, dtype=np.float32)
+                                * np.float32(0.02)).to(dev)
+
+    block = {"attn": {"q": draw(d, q), "k": draw(d, kv), "v": draw(d, kv),
+                      "o": draw(q, d), "q_norm": draw(hd),
+                      "k_norm": draw(hd)},
+             "mlp": {"gate": draw(d, f), "up": draw(d, f),
+                     "down": draw(f, d)},
+             "input_norm": draw(d), "post_norm": draw(d)}
+    return {"embed": draw(QWEN3_4B["vocab"], d), "layers": [block]}
+
+
+def phase_checkpoint(torch, dev, seed: int) -> dict:
+    """qwen3-4b's embedding plus one block saved at 4 shards through an
+    AsyncWriter (cusz leaves, the embedding as int8-block) and loaded on
+    the card."""
+    import os
+
+    from repro_torch import codecs
+    from repro_torch.io import checkpoint as CK
+    from repro_torch.io.async_writer import AsyncWriter
+    from repro_torch.kernels import dispatch
+
+    tree = qwen3_tree(torch, dev, seed)
+    leaves = dict((CK._leaf_key(p), t) for p, t in
+                  CK._leaves_with_path(tree))
+    n_values = sum(t.numel() for t in leaves.values())
+    # eb_valrel 1e-3: at the default 1e-5, N(0, 0.02) weights overflow
+    # cusz's outlier capacity and every matrix falls back to lossless
+    policy = CK.CheckpointPolicy(codec="cusz", eb_valrel=1e-3,
+                                 rules=(("embed", "int8-block"),))
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        with AsyncWriter(max_pending=1) as w:
+            t0 = time.perf_counter()
+            CK.save_checkpoint(d, 0, tree, policy=policy, nshards=4,
+                               writer=w)
+            t_enc = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            w.wait()
+            t_write = time.perf_counter() - t0
+        step_dir = os.path.join(d, "step_00000000")
+        man = json.load(open(os.path.join(step_dir, "manifest.json")))
+        shard_bytes = [os.path.getsize(os.path.join(
+            step_dir, CK._SHARD_FMT.format(h))) for h in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = CK.load_checkpoint(d, tree, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        stats = dict(CK.LAST_RESTORE_STATS)
+    counts = dispatch.launch_counts()
+    got = dict((CK._leaf_key(p), t) for p, t in CK._leaves_with_path(out))
+    placement, fails = {}, []
+    for key, x in leaves.items():
+        e = man["tensors"][key]
+        y = got[key]
+        placement[key] = {"codec": e["codec"], "axis": e["axis"],
+                          "shards": [s["shard"] for s in e["shards"]]}
+        if e["codec"] == "lossless":
+            ok = torch.equal(y, x)
+        elif e["codec"] == "int8-block":
+            # split across the 4 shards; within scale/2 + one ulp, with
+            # the block scales recomputed from the source
+            c = codecs.get("int8-block").encode(x)
+            ok = e["axis"] == 0 and len(e["shards"]) == 4 \
+                and bool(((y - x).abs() <= int8_tolerance(
+                    torch, c, x, "int8-block")).all())
+            del c
+        else:
+            eb = float(e["shards"][0]["header"]["params"]["eb"])
+            ok = e["axis"] is None and len(e["shards"]) == 1 \
+                and float((y - x).abs().max()) <= eb * (1 + 1e-5) \
+                + 4 * 2.0 ** -23 * float(x.abs().max())
+        if not ok:
+            fails.append(key)
+    emit({"phase": "checkpoint", "leaves": len(leaves), "values": n_values,
+          "raw_bytes": n_values * 4, "nshards": 4,
+          "eb_valrel": policy.eb_valrel, "encode_s": t_enc,
+          "write_s": t_write, "load_s": t_load,
+          "shard_bytes": shard_bytes, "stored_bytes": sum(shard_bytes),
+          "ratio": n_values * 4 / sum(shard_bytes),
+          "placement": placement, "restore_stats": stats,
+          "launches": {k: v for k, v in counts.items() if v},
+          "leaves_failing": fails})
+    require(not fails, f"checkpoint leaves outside their bound: {fails}")
+    require(all(counts[k] > 0 for k in PATH_KERNELS["cusz"]),
+            f"checkpoint: cusz kernels not launched: {counts}")
+    del tree, out, leaves, got
+    torch.cuda.empty_cache()
+    return counts
+
+
+def timed(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase": "timing", "name": name,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the consumer phases' weights and caches")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -705,14 +1105,21 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase_env(torch)
-    phase_build()
-    kernels = phase_kernels(torch, dev)
-    phase_golden(torch)
-    phase_quality(torch)
-    per_codec = phase_main(torch, dev)
-    # launches summed over the three codecs' main paths
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels, torch, dev)
+    timed("golden", phase_golden, torch)
+    timed("quality", phase_quality, torch)
+    per_path = timed("main", phase_main, torch, dev)
+    per_path["v1"] = timed("v1", phase_v1, torch, dev)
+    per_path["codecs"] = timed("codecs", phase_codecs, torch, dev,
+                               args.seed)
+    per_path["kv"] = timed("kv", phase_kv, torch, dev, args.seed)
+    per_path["checkpoint"] = timed("checkpoint", phase_checkpoint, torch,
+                                   dev, args.seed)
+    # launches summed over the three codecs' main paths and the consumer
+    # phases
     summary = [{**kernels[k],
-                "launches": sum(c[k] for c in per_codec.values())}
+                "launches": sum(c[k] for c in per_path.values())}
                for k in KERNELS]
     for row in summary:
         require(all(row[key] is not None and math.isfinite(row[key])

@@ -184,6 +184,42 @@ def check_container(c: Container) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Shard reassembly (payload-space concatenation)
+# ---------------------------------------------------------------------------
+
+def concat_containers(parts, axis: int, field_axes: Mapping[str, Any]
+                      ) -> Container:
+    """Merge axis-sharded containers of one codec into a single container
+    without decoding: each payload field is concatenated along the axis
+    `field_axes` maps it to (None = shared field, taken from the first
+    part).  Headers must agree except for ``shape[axis]``, which the
+    merged header sums; per-part checksums are ignored and dropped."""
+    h0 = parts[0].header
+
+    def _cmp(h):
+        return tuple((k, v) for k, v in h.params if k != "checksum")
+    for p in parts[1:]:
+        if p.header.codec != h0.codec or _cmp(p.header) != _cmp(h0):
+            raise ValueError(f"cannot concat containers with differing "
+                             f"codec/params: {p.header} vs {h0}")
+    h0 = h0.without_params("checksum")
+    shape = list(h0.shape)
+    shape[axis] = sum(int(p.header.shape[axis]) for p in parts)
+    payload: Dict[str, Any] = {}
+    for field, fa in field_axes.items():
+        vals = [p.payload[field] for p in parts]
+        if fa is None:
+            payload[field] = vals[0]
+        elif all(isinstance(v, np.ndarray) for v in vals):
+            payload[field] = np.concatenate(vals, axis=fa)
+        else:
+            dev = next(v.device for v in vals if isinstance(v, torch.Tensor))
+            payload[field] = torch.cat(
+                [torch.as_tensor(v, device=dev) for v in vals], dim=fa)
+    return Container(dataclasses.replace(h0, shape=tuple(shape)), payload)
+
+
+# ---------------------------------------------------------------------------
 # Host / storage view
 # ---------------------------------------------------------------------------
 

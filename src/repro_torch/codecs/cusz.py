@@ -17,13 +17,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core import compressor as CZ
 from repro_torch.core import stages
 
-from .base import Codec, input_device, register
+from .base import Codec, as_tensor, input_device, register
 from .container import Container, stamp_checksum
 
 
@@ -50,10 +49,7 @@ class CuszCodec(Codec):
     def encode(self, x, *, cfg: Optional[CZ.CompressorConfig] = None,
                device=None) -> Container:
         c = cfg if cfg is not None else self.cfg
-        dev = input_device(x, device)
-        t = x if isinstance(x, torch.Tensor) \
-            else torch.from_numpy(np.ascontiguousarray(x))
-        x32 = t.to(device=dev, dtype=torch.float32).contiguous()
+        x32 = as_tensor(x, device).to(torch.float32).contiguous()
         blob, eb = CZ.compress(x32, c)
         # "predictor" is recorded only when it is not the default, so
         # lorenzo headers stay those of every container written before

@@ -20,12 +20,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core import compressor as CZ
 
-from .base import Codec, input_device, register
+from .base import Codec, as_tensor, input_device, register
 from .container import Container, stamp_checksum
 
 
@@ -61,10 +60,7 @@ class FzCodec(Codec):
     def encode(self, x, *, cfg: Optional[CZ.CompressorConfig] = None,
                device=None) -> Container:
         c = cfg if cfg is not None else self.cfg
-        dev = input_device(x, device)
-        t = x if isinstance(x, torch.Tensor) \
-            else torch.from_numpy(np.ascontiguousarray(x))
-        x32 = t.to(device=dev, dtype=torch.float32).contiguous()
+        x32 = as_tensor(x, device).to(torch.float32).contiguous()
         payload, eb = CZ.staged_compress(x32, c)
         extra = {} if c.predictor == "lorenzo" else {"predictor": c.predictor}
         header = self._header(

@@ -169,14 +169,15 @@ class StagedPipeline:
         n_sym = self.predictor.n_codes(tuple(shape), cfg)
         d = dict(self.encoder.unpack_payload(packed, cfg, n_sym))
         d.update(self.predictor.unpack_payload(packed, cfg, tuple(shape)))
-        return {k: _to_tensor(v, device) for k, v in d.items()}
+        return {k: to_tensor(v, device) for k, v in d.items()}
 
     def stored_nbytes(self, packed: dict) -> int:
         return (self.encoder.stored_nbytes(packed)
                 + self.predictor.stored_nbytes(packed) + HEADER_BYTES)
 
 
-def _to_tensor(a, device) -> torch.Tensor:
+def to_tensor(a, device) -> torch.Tensor:
+    """A host array (packed payload value) as a tensor on `device`."""
     return torch.from_numpy(np.require(a, requirements="CW")).to(device)
 
 
@@ -259,6 +260,6 @@ def unpack_blob(d: dict, device) -> CompressedBlob:
     if d.get("anchor") is not None:
         payload["anchor"] = np.asarray(d["anchor"], np.int32)
     return CompressedBlob(**{
-        f: (_to_tensor(payload[f], device)
+        f: (to_tensor(payload[f], device)
             if payload.get(f) is not None else None)
         for f in CompressedBlob._fields})

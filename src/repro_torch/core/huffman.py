@@ -6,6 +6,7 @@ Stages (paper Fig. 1, bottom):
   3. canonization                                  -> `canonical_codebook`
   4. encode (codebook gather) + deflate (bit-pack) -> `encode`, `deflate`
   decode: gap-array parallel inflate               -> `inflate_gap`
+          gap-less (format v1) sequential inflate  -> `inflate`
 
 The tree build is a serial loop of up to nbins-1 merges over a 4 KB
 histogram.  It runs on a host copy of the histogram whatever the input
@@ -15,23 +16,27 @@ them) is moved to the data's device once per field.
 
 `encode`, `deflate` and `inflate_gap` here are the plain PyTorch versions
 of the CUDA kernels (`repro_torch.kernels.{encode,deflate,inflate}`),
-which the pipeline dispatches to.  Canonical codewords and stream words
+which the pipeline dispatches to.  The sequential decoders of gap-less
+streams (`inflate_lut`, `inflate_bitscan`) have no kernel: no TPU kernel
+computes them either, and they run as torch ops on the words' device.  Canonical codewords and stream words
 are u32: they are stored as `torch.uint32` tensors and computed on as
 int64 in [0, 2^32), because PyTorch has no uint32 arithmetic.
 """
 from __future__ import annotations
 
+import heapq
 from collections import OrderedDict
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 MAXLEN = 32          # hard cap on codeword bitlength (u32 stream words)
 SUBCHUNK = 128       # default gap-array subchunk (symbols per decode unit)
-# the reference's static decode-variant buckets (a table decoder up to 16
-# bits); recorded by the encoder's decode_meta so a sequential table
-# decoder can specialize on them
+# the reference's static decode-variant buckets: the sequential decoder of
+# gap-less streams walks a dense table up to SEQ_LUT_BITS, bit by bit above
 LUT_BUCKETS = (8, 12, 16)
+SEQ_LUT_BITS = 16
 # peek bits that index the inflate kernel's shared-memory decode table
 # (`DecodeTable.lut`, 16 KB); longer codewords take the interval compare
 LUT_BITS = 12
@@ -40,7 +45,7 @@ _M32 = 0xFFFFFFFF
 
 def bucket_max_len(max_len: int) -> int:
     """Round a practical max codeword length up to the bucket set
-    {8, 12, 16}; anything longer maps to MAXLEN."""
+    {8, 12, 16}; anything longer maps to MAXLEN (the bit-scan regime)."""
     for b in LUT_BUCKETS:
         if max_len <= b:
             return b
@@ -60,6 +65,33 @@ def u32_values(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Tree build -> codeword lengths
 # ---------------------------------------------------------------------------
+
+def codeword_lengths_host(freq) -> np.ndarray:
+    """Heap-based Huffman (the oracle): bitlength per symbol, 0 for unused
+    symbols.  Ties pop by insertion id, so equal frequencies merge in
+    symbol order and then in merge order, as in the reference."""
+    freq = np.asarray(freq)
+    k = freq.shape[0]
+    active = [int(s) for s in np.nonzero(freq)[0]]
+    if not active:
+        return np.zeros(k, np.int32)
+    if len(active) == 1:
+        out = np.zeros(k, np.int32)
+        out[active[0]] = 1
+        return out
+    heap = [(int(freq[s]), i, (s,)) for i, s in enumerate(active)]
+    heapq.heapify(heap)
+    lengths = np.zeros(k, np.int64)
+    uid = len(heap)
+    while len(heap) > 1:
+        f1, _, s1 = heapq.heappop(heap)
+        f2, _, s2 = heapq.heappop(heap)
+        for s in s1 + s2:
+            lengths[s] += 1
+        heapq.heappush(heap, (f1 + f2, uid, s1 + s2))
+        uid += 1
+    return lengths.astype(np.int32)
+
 
 def codeword_lengths(freq: torch.Tensor) -> torch.Tensor:
     """Two-queue Huffman on a host copy of `freq`.
@@ -168,6 +200,23 @@ def canonical_codebook(lengths: torch.Tensor) -> Codebook:
     return Codebook(lengths, as_u32(codes), as_u32(first_code),
                     start_idx.to(torch.int32), sym_canon.to(torch.int32),
                     max_len.to(torch.int32))
+
+
+def packed_codebook(cb: Codebook, unit_bits: int) -> torch.Tensor:
+    """Paper Fig. 4: a fixed-width unit holding the bitwidth (MSB side)
+    and the codeword (LSB side).  `unit_bits` 32 gives one uint32 per
+    symbol; 64 gives a [k, 2] uint32 pair (bitwidth, codeword)."""
+    if unit_bits == 32:
+        return as_u32(((cb.lengths.long() << 26) | u32_values(cb.codes))
+                      & _M32)
+    return torch.stack([cb.lengths.to(torch.int32).view(torch.uint32),
+                        cb.codes], dim=-1)
+
+
+def select_repr(max_len) -> int:
+    """Adaptive codeword representation (paper §3.2.2): 32-bit units when
+    max_len + 6 <= 32, else 64."""
+    return 32 if int(max_len) + 6 <= 32 else 64
 
 
 # ---------------------------------------------------------------------------
@@ -393,3 +442,121 @@ def inflate_gap(words: torch.Tensor, n_valid: torch.Tensor,
         out[:, :, i] = torch.where(ok, sym, 0)
         bitpos = bitpos + torch.where(ok, ln, 0)
     return out.reshape(nc, W)
+
+
+# ---------------------------------------------------------------------------
+# Gap-less (format v1) sequential decode
+# ---------------------------------------------------------------------------
+#
+# Streams written before the gap arrays existed carry no subchunk offsets,
+# so each chunk decodes from its first bit to its end.  The walk is
+# sequential inside a chunk and runs over all chunks at once: one Python
+# step per symbol (table walk) or per bit (bit scan), each step a few
+# tensor ops over the chunks.
+
+def _build_lut(cb: Codebook, lut_bits: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense (symbol, length) table keyed by the next `lut_bits` bits
+    (the reference's `_build_lut`): left-aligned canonical codes increase
+    in canonical order, so marking each code's first slot with its
+    canonical rank and filling by a running max builds the table."""
+    k = cb.lengths.numel()
+    dev = cb.lengths.device
+    len_canon = cb.lengths.long()[cb.sym_canon.long()]
+    shift = (lut_bits - len_canon).clamp(0, 31)
+    starts = (u32_values(cb.codes)[cb.sym_canon.long()] << shift) & _M32
+    active = len_canon > 0
+    starts = torch.where(active, starts, 1 << lut_bits)
+    keep = starts < (1 << lut_bits)                    # out of range: dropped
+    mark = torch.zeros(1 << lut_bits, dtype=torch.int64, device=dev)
+    rank = torch.where(active, torch.arange(k, device=dev) + 1, 0)
+    mark.scatter_reduce_(0, starts[keep], rank[keep], reduce="amax")
+    fill = (torch.cummax(mark, 0).values - 1).clamp(min=0)
+    return cb.sym_canon[fill], len_canon[fill].to(torch.int32)
+
+
+def inflate_lut(words: torch.Tensor, n_valid: torch.Tensor, cb: Codebook,
+                lut_bits: int = SEQ_LUT_BITS) -> torch.Tensor:
+    """Per-chunk sequential decode through the dense table, one step per
+    symbol over all chunks.  words: [nc, W] uint32; n_valid: [nc].
+    Returns int32 codes [nc, W]; positions past n_valid are 0."""
+    lut_sym, lut_len = _build_lut(cb, lut_bits)
+    nc, W = words.shape
+    dev = words.device
+    wext = torch.cat([u32_values(words),
+                      torch.zeros(nc, 1, dtype=torch.int64, device=dev)], 1)
+    nv = n_valid.long()
+    bitpos = torch.zeros(nc, 1, dtype=torch.int64, device=dev)
+    out = torch.zeros(nc, W, dtype=torch.int32, device=dev)
+    for i in range(int(nv.max()) if nc else 0):
+        wi = (bitpos >> 5).clamp(max=W)
+        bo = bitpos & 31
+        cur = (torch.gather(wext, 1, wi) << bo) & _M32
+        nxt = torch.gather(wext, 1, (wi + 1).clamp(max=W)) >> (32 - bo)
+        peek = (cur | torch.where(bo > 0, nxt, 0)) >> (32 - lut_bits)
+        ok = i < nv
+        out[:, i] = torch.where(ok, lut_sym[peek[:, 0]], 0)
+        bitpos = bitpos + torch.where(ok, lut_len[peek[:, 0]], 0
+                                      ).unsqueeze(1)
+    return out
+
+
+def _len_count(cb: Codebook) -> torch.Tensor:
+    """[MAXLEN + 1] int64 number of codewords of each length, from the
+    canonical start indices (the last length ends at the used count)."""
+    start = cb.start_idx.long()
+    nxt = torch.cat([start[1:], (cb.lengths > 0).sum().reshape(1)])
+    return nxt - start
+
+
+def inflate_bitscan(words: torch.Tensor, bits_used: torch.Tensor,
+                    n_valid: torch.Tensor, cb: Codebook) -> torch.Tensor:
+    """Per-chunk sequential decode one bit at a time (the paper's
+    sequential inflate; used when max_len > SEQ_LUT_BITS).  The reference
+    scans all 32·W bit positions; positions at or past the longest
+    chunk's `bits_used` emit nothing, so the walk stops there."""
+    nc, W = words.shape
+    dev = words.device
+    w64 = u32_values(words)
+    nb = bits_used.long()
+    nv = n_valid.long()
+    first = u32_values(cb.first_code)
+    start = cb.start_idx.long()
+    count = _len_count(cb)
+    k = cb.sym_canon.numel()
+    rows = torch.arange(nc, device=dev)
+    acc = torch.zeros(nc, dtype=torch.int64, device=dev)
+    ln = torch.zeros(nc, dtype=torch.int64, device=dev)
+    outpos = torch.zeros(nc, dtype=torch.int64, device=dev)
+    out = torch.zeros(nc, W, dtype=torch.int32, device=dev)
+    for bitpos in range(min(int(nb.max()) if nc else 0, 32 * W)):
+        bit = (w64[:, bitpos >> 5] >> (31 - (bitpos & 31))) & 1
+        acc = ((acc << 1) | bit) & _M32
+        ln = ln + 1
+        lnc = ln.clamp(0, MAXLEN)
+        lo = first[lnc]
+        # u32 difference reinterpreted as int32, as the reference does
+        diff = ((((acc - lo) & _M32) ^ (1 << 31)) - (1 << 31))
+        idx = start[lnc] + diff
+        emit = ((acc >= lo) & (idx < start[lnc] + count[lnc])
+                & (bitpos < nb) & (outpos < nv))
+        sym = cb.sym_canon[idx.clamp(0, k - 1)]
+        col = outpos.clamp(max=W - 1)
+        out[rows, col] = torch.where(emit, sym, out[rows, col])
+        acc = torch.where(emit, 0, acc)
+        ln = torch.where(emit, 0, ln)
+        outpos = outpos + emit.long()
+    return out
+
+
+def inflate(words: torch.Tensor, bits_used: torch.Tensor,
+            n_valid: torch.Tensor, cb: Codebook,
+            max_len_static: int) -> torch.Tensor:
+    """Sequential decode of a gap-less (format v1) stream, dispatched on
+    the bucketed max codeword length: the table walk up to SEQ_LUT_BITS,
+    the bit scan above.  Runs on the device of `words`; gap-array streams
+    use `inflate_gap`."""
+    if max_len_static <= SEQ_LUT_BITS:
+        return inflate_lut(words, n_valid, cb.to(words.device),
+                           lut_bits=max(1, int(max_len_static)))
+    return inflate_bitscan(words, bits_used, n_valid, cb.to(words.device))

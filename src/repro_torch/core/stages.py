@@ -306,17 +306,23 @@ class HuffmanEncoder(Encoder):
 
     def decode_meta(self, payload, cfg):
         max_len = int(payload["max_len"])
-        # the bucketed max length is what a sequential LUT decoder would
-        # specialize on; the gap decoder serves every bucket
+        # the bucketed max length picks the sequential decoder of a
+        # gap-less stream (table walk or bit scan); the gap decoder serves
+        # every bucket
         ml_b = hf.bucket_max_len(max(1, max_len))
         table = hf.decode_table(payload["lengths"])
         return (ml_b,), table
 
     def decode(self, payload, aux, static_meta, cfg, pp):
+        (ml_b,) = static_meta
+        gaps = payload.get("gap_bits")
+        # a gap-less stream takes the sequential decoder, which has no
+        # kernel: only an explicit request for the kernel raises there
+        impl = pp.for_kernel("inflate") if gaps is not None \
+            else dispatch.current_policy() or cfg.kernel_impl
         return inflate_ops.inflate(
-            payload["words"], payload["n_valid"], aux,
-            gaps=payload.get("gap_bits"),
-            impl=pp.for_kernel("inflate")).reshape(-1)
+            payload["words"], payload["n_valid"], aux, gaps=gaps, impl=impl,
+            bits_used=payload["bits_used"], max_len_static=ml_b).reshape(-1)
 
     def pack_payload(self, payload):
         bits = np.asarray(payload["bits_used"], dtype=np.int64)

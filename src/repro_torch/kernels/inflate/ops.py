@@ -10,10 +10,11 @@ compare only for longer codewords), reads the stream through a register
 bit buffer, and writes through a per-warp shared tile in 64 B runs.  See
 the source.
 
-Only gap-array streams (format v2) decode here.  The reference's
-sequential decoder for gap-less (format v1) streams is not ported yet,
-so such a stream raises; an explicit kernel request on one raises as in
-the reference, since the kernel is the gap decoder.
+Gap-less (format v1) streams decode through the sequential decoder
+(`huffman.inflate`), as torch ops on the words' device: no TPU kernel
+computes it, so it has no CUDA kernel.  An explicit kernel request on
+such a stream raises, as in the reference, since the kernel is the gap
+decoder.
 """
 from __future__ import annotations
 
@@ -73,16 +74,23 @@ def inflate_cuda(words: torch.Tensor, n_valid: torch.Tensor,
 def inflate(words: torch.Tensor, n_valid: torch.Tensor,
             table: hf.DecodeTable, gaps: Optional[torch.Tensor] = None,
             sub_size: Optional[int] = None,
-            impl: Optional[str] = None) -> torch.Tensor:
-    """Decode [nc, W] stream words to int32 codes [nc, W] (chunk order)."""
+            impl: Optional[str] = None,
+            bits_used: Optional[torch.Tensor] = None,
+            max_len_static: Optional[int] = None) -> torch.Tensor:
+    """Decode [nc, W] stream words to int32 codes [nc, W] (chunk order).
+    A gap-less stream (`gaps` None) needs `bits_used` and the bucketed
+    max codeword length `max_len_static` for the sequential decoder."""
     if gaps is None:
         if impl == "cuda":
             raise NotImplementedError(
                 "inflate impl='cuda' needs the gap array: the CUDA kernel is "
                 "the gap-array subchunk decoder")
-        raise NotImplementedError(
-            "gap-less (format v1) streams need the sequential decoder, which "
-            "repro_torch does not port yet")
+        if bits_used is None or max_len_static is None:
+            raise ValueError(
+                "the sequential decoder of a gap-less (format v1) stream "
+                "needs bits_used and max_len_static")
+        return hf.inflate(words, bits_used, n_valid, table.cb,
+                          max_len_static)
     if sub_size is None:
         sub_size = words.shape[1] // gaps.shape[1]
     impl = dispatch.resolve(KERNEL.name, words.device, impl)

@@ -272,10 +272,11 @@ class TestConfigs:
 
 class TestCodecSurface:
     def test_registry(self):
-        assert tcodecs.names() == ["cusz", "cusz-i", "fz"]
+        assert tcodecs.names() == ["cusz", "cusz-i", "fz", "int16", "int8",
+                                   "int8-block", "lossless", "zfp"]
         assert tcodecs.get("cusz") is tcodecs.get("cusz")
         with pytest.raises(KeyError, match="unknown codec"):
-            tcodecs.get("zfp")
+            tcodecs.get("sz3")
 
     def test_devices_follow_the_input(self):
         x = np.random.default_rng(1).standard_normal((40, 40)).astype(
@@ -418,6 +419,11 @@ class TestDispatch:
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in files}
+    assert {"codecs/int8.py", "codecs/lossless.py", "codecs/zfp.py",
+            "core/zfp_like.py", "core/kvcache.py", "dist/sharding.py",
+            "io/async_writer.py", "io/checkpoint.py"} <= names
     files.append(ROOT / "chip_smoke.py")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

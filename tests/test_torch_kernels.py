@@ -383,7 +383,7 @@ class TestInflate:
         nv = torch.tensor([256, 44], dtype=torch.int32)
         with pytest.raises(NotImplementedError, match="gap array"):
             t_inflate.inflate(words, nv, table, gaps=None, impl="cuda")
-        with pytest.raises(NotImplementedError, match="sequential"):
+        with pytest.raises(ValueError, match="sequential"):
             t_inflate.inflate(words, nv, table, gaps=None)
 
 
