@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's three codecs (src/repro_torch: cusz,
-cusz-i and fz) on one NVIDIA card, and hold every CUDA kernel of their
-paths against its plain PyTorch version.
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card: its
+three codecs (cusz, cusz-i, fz) with every CUDA kernel of their paths
+held against its plain PyTorch version, their consumers, and the dense
+model's serving path at qwen3-4b width.
 
 Run from the repository root, with no arguments:
 
@@ -50,10 +51,28 @@ Phases, each printing one JSON line:
   checkpoint  qwen3-4b's tied embedding plus one decoder block (490 M
             f32 values, numpy from --seed) saved at 4 shards through an
             AsyncWriter and loaded on the card
+  serve:*   the serving path at qwen3-4b's published width and depth
+            (36 layers, 4.02 B random f32 weights from --seed, cast once
+            to bf16): `serve:generate` (4 prompts of 512 tokens, s_max
+            1024, int8-block QuantKV, 16 greedy tokens; prefill seconds,
+            decode tokens/s, peak memory, a torch.profiler window of 2
+            decode steps), `serve:disagg:<wire>` (prefill ->
+            encode_handoff -> reshard_caches -> decode_tokens over
+            int8-block, cusz, fz, lossless: wire bytes, ratio, seconds,
+            launches; int8-block adopted bit for bit with generate's
+            tokens, cusz / fz within their bound, and the K tensor's
+            containers made again by the kernels' plain versions on the
+            same card tensor, byte for byte, with equal restores) and
+            `serve:continuous:*` (8 requests of 130-600 tokens on 4
+            slots: cusz eviction of the first 4 on an 8-page pool, which
+            must preempt, with one evicted page encoded and restored
+            again by the plain versions; then int8-block on the 8- and
+            the 32-page pool for all 8, whose tokens must agree)
 
-Each of the last four is driven with the launch counts set to 0 just
-before it and read just after it; "timing" lines give each phase's
-seconds; `--seed` sets the data of the last three.
+Each of the last five is driven with the launch counts set to 0 just
+before it (each serve phase before itself) and read just after it;
+"timing" lines give each phase's seconds; `--seed` sets the data of the
+last four.
 
 then the `{"kernels": [...]}` summary and, last, the device line.  Any
 failed check raises, so the script exits nonzero; without a CUDA device it
@@ -881,7 +900,7 @@ def phase_codecs(torch, dev, seed: int) -> dict:
 
 
 def phase_kv(torch, dev, seed: int) -> dict:
-    """The prefill -> decode handoff of one 32k-token sequence at
+    """The prefill -> decode handoff of one 8k-token sequence at
     qwen3-4b's width and depth: the K tensor over the four wires, then
     page eviction and adoption on the int8-block wire."""
     from repro_torch.core import kvcache as KV
@@ -1081,6 +1100,376 @@ def phase_checkpoint(torch, dev, seed: int) -> dict:
     return counts
 
 
+SERVE = dict(batch=4, prompt=512, s_max=1024, new=16, requests=8,
+             plen=(130, 600), max_new=(8, 16), arrivals=(0, 3),
+             max_batch=4, tight_pages=8, big_pages=32,
+             # the cusz-evicting run takes the first 4 requests: on the
+             # 8-page pool they preempt 22 times and move 70 pages each
+             # way (all 8 move 350, ~0.14 s each at full width)
+             cusz_requests=4)
+WIRES = ("int8-block", "cusz", "fz", "lossless")
+# the kernels each handoff wire must launch (kernels 1-6; 1, 2, 9, 10)
+WIRE_KERNELS = {"cusz": PATH_KERNELS["cusz"], "fz": PATH_KERNELS["fz"],
+                "int8-block": (), "lossless": ()}
+
+
+def same_qkv(torch, a, b) -> bool:
+    return torch.equal(a.q, b.q) and torch.equal(
+        a.scale.view(torch.int32), b.scale.view(torch.int32))
+
+
+def handoff_bound_held(torch, KV, parts, src_bf16, seq_axis: int):
+    """Each lossy slab within its wire bound: the codec's eb (absolute,
+    from the header) plus the bf16 rounding of the restored value.
+    Returns (worst error / bound, held)."""
+    got = KV.kv_wire_restore(parts, seq_axis, dtype=torch.bfloat16,
+                             device=src_bf16.device)
+    worst, ok, start = 0.0, True, 0
+    for p in parts:
+        n = KV.kv_slab_shape(p)[seq_axis]
+        ref_s = src_bf16.narrow(seq_axis, start, n).float()
+        err = float((got.narrow(seq_axis, start, n).float() - ref_s)
+                    .abs().max())
+        amax = float(ref_s.abs().max())
+        tol = (float(p.header.param("eb")) if p.header.codec != "lossless"
+               else 0.0)
+        if amax > 0:
+            tol += 2.0 ** math.floor(math.log2(amax)) * 2.0 ** -8
+        worst = max(worst, err / tol if tol else (0.0 if err == 0 else
+                                                  math.inf))
+        ok &= err <= tol
+        start += n
+    return worst, ok
+
+
+def same_containers(np, codecs, a, b) -> bool:
+    """Two sequences of packed containers, byte for byte."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        hx, ax = codecs.to_arrays(x)
+        hy, ay = codecs.to_arrays(y)
+        if hx != hy or sorted(ax) != sorted(ay) or any(
+                np.asarray(ax[k]).tobytes() != np.asarray(ay[k]).tobytes()
+                for k in ax):
+            return False
+    return True
+
+
+def plain_route_check(torch, dispatch, encode, restore, parts,
+                      same_restore) -> dict:
+    """Encode and restore one cache tensor again through the kernels'
+    plain PyTorch versions on the same card tensors: `encode()` must give
+    the containers `parts` that the kernels made on the path, byte for
+    byte, and `restore(parts)` the same values as the kernels' restore.
+    The plain run must launch no kernel (it really took the plain route);
+    the kernels' restore here runs after the path's counts were read."""
+    import numpy as np
+
+    from repro_torch import codecs
+
+    dispatch.reset_launches()
+    with dispatch.kernel_policy("torch"):
+        plain_parts = encode()
+        plain = restore(parts)
+    torch.cuda.synchronize()
+    plain_launches = sum(dispatch.launch_counts().values())
+    kern = restore(parts)
+    out = {"containers": len(parts),
+           "containers_identical": same_containers(np, codecs, parts,
+                                                   plain_parts),
+           "restore_equal": same_restore(plain, kern),
+           "plain_launches": plain_launches}
+    out["ok"] = out["containers_identical"] and out["restore_equal"] \
+        and plain_launches == 0
+    return out
+
+
+def serve_requests(np, Req, cfg, seed: int):
+    """The continuous phase's requests, from `seed`."""
+    sizes = SERVE
+    rng = np.random.default_rng(seed + 1)
+    lo, hi = sizes["plen"]
+    return [Req(rid=i,
+                prompt=rng.integers(1, cfg.vocab,
+                                    size=int(rng.integers(lo, hi + 1))
+                                    ).astype(np.int32),
+                max_new=int(rng.integers(sizes["max_new"][0],
+                                         sizes["max_new"][1] + 1)),
+                arrival=int(rng.integers(sizes["arrivals"][0],
+                                         sizes["arrivals"][1] + 1)))
+            for i in range(sizes["requests"])]
+
+
+def profile_decode(torch, dev, E, params, cfg, scfg, last, caches, plen,
+                   steps: int = 2) -> dict:
+    """`torch.profiler` over `steps` decode steps: the device's busy
+    time (the sum of kernel times) against the host clock, and the five
+    kernels that take the most device time.  Only the device is traced
+    (tracing the host's ~20 k ops per step as well took ~18 s for 4
+    steps and adds host time to them); `profiler_s` is the whole call,
+    ~2.7 s per step for the ~5 k kernels of a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_call = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        E.decode_tokens(params, cfg, scfg, last, caches, plen, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy = sum(r[1] for r in rows) / 1e6
+    rows.sort(key=lambda r: -r[1])
+    return {"steps": steps, "wall_s": wall, "device_busy_s": busy,
+            "profiler_s": time.perf_counter() - t_call,
+            "device_busy_share": busy / wall if rows else None,
+            "kernels_per_step": sum(r[2] for r in rows) / steps,
+            "top": [{"name": k[:80], "ms_per_step": t / 1e3 / steps,
+                     "calls_per_step": c / steps} for k, t, c in rows[:6]]}
+
+
+def phase_serve(torch, dev, seed: int) -> dict:
+    """The serving path at qwen3-4b's published width and depth: generate
+    (prefill + 16 greedy tokens), the disaggregated prefill -> handoff ->
+    reshard -> decode over the four wires, and the continuous scheduler
+    on a paged pool tight enough to preempt.  Random f32 weights from
+    `seed`, cast once to bf16.  Returns the launch counts summed over the
+    phases (each driven with the counts set to 0 just before it)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import kvcache as KV
+    from repro_torch.io.checkpoint import _leaves_with_path
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import pool as P
+    from repro_torch.serve import scheduler as S
+
+    cfg, sizes = configs.get("qwen3-4b"), SERVE
+    total = {name: 0 for name in dispatch.launch_counts()}
+
+    def add(counts):
+        for n, v in counts.items():
+            total[n] += v
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = M.cast_params(M.init_params(gen, cfg, device=dev),
+                           torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in _leaves_with_path(params))
+    scfg = E.ServeConfig(s_max=sizes["s_max"], compressed_kv=True)
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (sizes["batch"], sizes["prompt"])).astype(np.int32)
+    ).to(dev)
+    B, n_new = sizes["batch"], sizes["new"]
+
+    # -- serve:generate ----------------------------------------------------
+    t_phase = time.perf_counter()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    want = E.generate(params, cfg, prompt, n_new, scfg)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    last, caches, plen = E.prefill(params, cfg, prompt, scfg)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = E.decode_tokens(params, cfg, scfg, last, caches, plen, n_new)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    add(dispatch.launch_counts())
+    prof = profile_decode(torch, dev, E, params, cfg, scfg, last, caches,
+                          plen)
+    ok = torch.equal(toks, want) and tuple(toks.shape) == (B, n_new) \
+        and bool(((toks >= 0) & (toks < cfg.vocab)).all()) \
+        and bool(torch.isfinite(last).all())
+    emit({"phase": "serve:generate", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": n_params, "weights_dtype": "bfloat16 (cast once)",
+          "batch": B, "prompt_len": plen, "s_max": scfg.s_max,
+          "compressed_kv": True, "new_tokens": n_new,
+          "init_and_cast_s": t_init, "generate_first_call_s": t_gen,
+          "prefill_s": t_prefill,
+          "prefill_tokens_per_s": B * plen / t_prefill,
+          "decode_s": t_decode, "decode_tokens_per_s": B * n_new / t_decode,
+          "decode_ms_per_step": t_decode / n_new * 1e3,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "tokens_equal_generate": torch.equal(toks, want),
+          "first_tokens": toks[0, :8].tolist(), "decode_profile": prof,
+          "phase_s": time.perf_counter() - t_phase})
+    require(ok, "serve:generate: tokens differ between generate and "
+            "prefill + decode_tokens, or are out of range")
+
+    # -- serve:disagg:<wire> -----------------------------------------------
+    src_bf16 = [KV.kv_dequantize(c, E.HANDOFF_SEQ_AXIS, torch.bfloat16)
+                for kv in caches.entries for c in kv]
+    for wire in WIRES:
+        torch.cuda.synchronize()
+        t_phase = time.perf_counter()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        h = E.encode_handoff(caches, cfg, scfg, plen=plen, wire=wire)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        hs = dict(E.LAST_HANDOFF_STATS)
+        t0 = time.perf_counter()
+        rc = E.reshard_caches(h, cfg, scfg, device=dev)
+        torch.cuda.synchronize()
+        t_res = time.perf_counter() - t0
+        rs = dict(E.LAST_RESHARD_STATS)
+        t0 = time.perf_counter()
+        got = E.decode_tokens(params, cfg, scfg, last, rc, h.plen, n_new)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        add(counts)
+        rec = {"phase": f"serve:disagg:{wire}", "wire_bytes":
+               hs["wire_bytes"], "raw_bf16_bytes": hs["raw_bf16_bytes"],
+               "ratio": hs["raw_bf16_bytes"] / hs["wire_bytes"],
+               "containers": hs["containers"],
+               "lossless_fallback": hs["lossless_fallback"],
+               "encode_s": t_enc, "reshard_s": t_res, "decode_s": t_dec,
+               "adopted_quantkv": rs["adopted_quantkv"],
+               "decoded": rs["decoded"],
+               "tokens_equal_generate": torch.equal(got, want),
+               "launches": {k: v for k, v in counts.items() if v}}
+        missing = [k for k in WIRE_KERNELS[wire] if counts[k] == 0]
+        rec["kernels_missing"] = missing
+        ok = not missing and tuple(got.shape) == (B, n_new)
+        if wire == "int8-block":
+            exact = all(same_qkv(torch, a, b)
+                        for kv_a, kv_b in zip(rc.entries, caches.entries)
+                        for a, b in zip(kv_a, kv_b))
+            rec["adopted_bit_exact"] = exact
+            ok &= exact and rs["adopted_quantkv"] == 2 * len(cfg.pattern) \
+                and torch.equal(got, want)
+        else:
+            parts = [p for kv in h.entries for p in kv]
+            worst, held = 0.0, True
+            for pt, src in zip(parts, src_bf16):
+                w, hd = handoff_bound_held(torch, KV, pt, src,
+                                           E.HANDOFF_SEQ_AXIS)
+                worst, held = max(worst, w), held and hd
+            rec.update(max_err_over_bound=worst, bound_held=held)
+            ok &= held and rs["decoded"] == 2 * len(cfg.pattern)
+            if wire in ("cusz", "fz"):
+                kq = caches.entries[0][0]
+                chk = plain_route_check(
+                    torch, dispatch,
+                    lambda: KV.kv_wire_encode(
+                        kq, E.HANDOFF_SEQ_AXIS, wire=wire,
+                        source_dtype=scfg.compute_dtype),
+                    lambda ps: KV.kv_wire_restore(
+                        ps, E.HANDOFF_SEQ_AXIS, dtype=torch.bfloat16,
+                        device=dev),
+                    h.entries[0][0], torch.equal)
+                rec["plain_route_k"] = chk
+                ok &= chk["ok"]
+        rec["phase_s"] = time.perf_counter() - t_phase
+        emit(rec)
+        require(ok, f"serve:disagg:{wire}: {rec}")
+        del h, rc
+    del caches, src_bf16, last
+    torch.cuda.empty_cache()
+
+    # -- serve:continuous --------------------------------------------------
+    all_reqs = serve_requests(np, S.Request, cfg, seed)
+    evicted = []
+    keep_evict = P._evict_slab
+
+    def recording_evict(slab, seq_axis, codec, source_dtype, codec_cfg):
+        """The pool's eviction leg, keeping the first slab it encodes
+        (and its containers) for the plain-route check."""
+        parts = keep_evict(slab, seq_axis, codec, source_dtype, codec_cfg)
+        if not evicted:
+            evicted.append((KV.QuantKV(slab.q.clone(), slab.scale.clone()),
+                            seq_axis, codec, source_dtype, codec_cfg,
+                            parts))
+        return parts
+
+    runs = {}
+    for label, codec, pages in (("cusz", None, sizes["tight_pages"]),
+                                ("int8-block", "int8-block",
+                                 sizes["tight_pages"]),
+                                ("int8-block-big", "int8-block",
+                                 sizes["big_pages"])):
+        reqs = all_reqs[:sizes["cusz_requests"]] if label == "cusz" \
+            else all_reqs
+        torch.cuda.synchronize()
+        P._evict_slab = recording_evict if label == "cusz" else keep_evict
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            fin, sched = S.run_continuous(
+                params, cfg, scfg,
+                S.SchedulerConfig(max_batch=sizes["max_batch"],
+                                  pool_pages=pages, evict_codec=codec),
+                reqs)
+            torch.cuda.synchronize()
+        finally:
+            P._evict_slab = keep_evict
+        dt = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        add(counts)
+        st = sched.pool.stats()
+        n_tok = sum(len(f["tokens"]) for f in fin.values())
+        rec = {"phase": f"serve:continuous:{label}", "requests": len(fin),
+               "prompt_lens": [len(r.prompt) for r in reqs],
+               "max_batch": sizes["max_batch"], "pool_pages": pages,
+               "evict_codec": st["evict_codec"], "decode_steps":
+               sched.n_steps, "preemptions": sched.preemptions,
+               "evicted_pages": st["evicted_pages"],
+               "restored_pages": st["restored_pages"],
+               "host_bytes_evicted": st["evicted_bytes"],
+               "peak_pages": st["peak_used"], "tokens": n_tok,
+               "seconds": dt, "tokens_per_s": n_tok / dt,
+               "launches": {k: v for k, v in counts.items() if v}}
+        runs[label] = (fin, sched)
+        ok = len(fin) == len(reqs) and all(
+            len(fin[r.rid]["tokens"]) == r.max_new for r in reqs) \
+            and sched.pool.used_pages == 0
+        if label == "cusz":
+            missing = [k for k in PATH_KERNELS["cusz"] if counts[k] == 0]
+            rec["kernels_missing"] = missing
+            ok &= sched.preemptions > 0 and st["evicted_pages"] > 0 \
+                and st["restored_pages"] > 0 and not missing \
+                and len(evicted) == 1
+            if evicted:
+                slab, ax, ev_codec, src_dt, ev_cfg, parts = evicted[0]
+                chk = plain_route_check(
+                    torch, dispatch,
+                    lambda: keep_evict(slab, ax, ev_codec, src_dt, ev_cfg),
+                    lambda ps: P._restore_slab(ps, ax, src_dt, dev),
+                    parts, lambda a, b: same_qkv(torch, a, b))
+                rec["plain_route_page"] = {"slab_shape": list(slab.q.shape),
+                                           **chk}
+                ok &= chk["ok"]
+        rec["phase_s"] = time.perf_counter() - t0
+        emit(rec)
+        require(ok, f"serve:continuous:{label}: {rec}")
+    tight, big = runs["int8-block"][0], runs["int8-block-big"][0]
+    same = all(tight[r]["tokens"] == big[r]["tokens"] for r in tight)
+    emit({"phase": "serve:continuous", "int8_block_tight_equals_big": same,
+          "tight_preemptions": runs["int8-block"][1].preemptions,
+          "big_preemptions": runs["int8-block-big"][1].preemptions})
+    require(same and runs["int8-block"][1].preemptions > 0,
+            "serve:continuous: int8-block tight-pool tokens differ from "
+            "the big pool's (or the tight pool never preempted)")
+    del params, runs
+    torch.cuda.empty_cache()
+    return total
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1116,6 +1505,7 @@ def main() -> int:
     per_path["kv"] = timed("kv", phase_kv, torch, dev, args.seed)
     per_path["checkpoint"] = timed("checkpoint", phase_checkpoint, torch,
                                    dev, args.seed)
+    per_path["serve"] = timed("serve", phase_serve, torch, dev, args.seed)
     # launches summed over the three codecs' main paths and the consumer
     # phases
     summary = [{**kernels[k],

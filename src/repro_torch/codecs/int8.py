@@ -12,7 +12,8 @@ is data-dependent; axis/block/bits are static header params).  Payloads
 and packed containers are the reference's, byte for byte: the scale is
 computed in the source dtype before the cast to float32 (blockwise) and
 every divide is an IEEE divide by a tensor, never a multiply by a
-reciprocal.
+reciprocal (except `block_quantize(reciprocal=True)`, the reference's
+compiled form, which the KV cache's decode-side requantize needs).
 """
 from __future__ import annotations
 
@@ -38,6 +39,13 @@ def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
     """`a / b` as an IEEE divide in a's dtype (a 0-d tensor divisor: on
     CUDA a Python-scalar divisor becomes a multiply by its reciprocal)."""
     return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+
+
+def recip(b: float, like: torch.Tensor) -> torch.Tensor:
+    """`1/b` rounded to like's dtype (the constant XLA multiplies by where
+    compiled code divides by the constant `b`)."""
+    return torch.tensor(1.0 / b, dtype=torch.float32).to(like.dtype).to(
+        like.device)
 
 
 def _floor(a: torch.Tensor) -> torch.Tensor:
@@ -81,14 +89,20 @@ def _merge(xb: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def block_quantize(x: torch.Tensor, axis: int, block: int,
-                   qmax: float = 127.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                   qmax: float = 127.0, reciprocal: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blockwise int8 quantization along `axis` (length must divide into
     `block`-sized groups).  Returns (q int8 of x.shape, scale f32 of
-    x.shape with the `axis` dim shrunk to n_blocks)."""
+    x.shape with the `axis` dim shrunk to n_blocks).  `reciprocal=True`
+    derives the scale as the reference's compiled (jitted) code does:
+    XLA rewrites the divide by the constant `qmax` into a multiply by its
+    reciprocal in x's dtype."""
     axis = axis % x.ndim
     xb = _split(x, axis, block)
     amax = xb.abs().amax(dim=axis + 1, keepdim=True)
-    scale = _floor(true_div(amax, qmax)).to(torch.float32)
+    scale = (amax * recip(qmax, amax) if reciprocal
+             else true_div(amax, qmax))
+    scale = _floor(scale).to(torch.float32)
     q = torch.round(xb.to(torch.float32) / scale).clamp(-qmax, qmax
                                                         ).to(torch.int8)
     return _merge(q, axis), scale.squeeze(axis + 1)

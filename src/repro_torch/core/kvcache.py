@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import warnings
 from types import SimpleNamespace
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,14 +36,23 @@ class QuantKV(NamedTuple):
     scale: torch.Tensor      # f32, shape = source with seq axis / SEQ_BLOCK
 
 
-def kv_quantize(x: torch.Tensor, seq_axis: int) -> QuantKV:
+def kv_quantize(x: torch.Tensor, seq_axis: int, *,
+                reciprocal: bool = False) -> QuantKV:
     """Blockwise int8 quantization along `seq_axis` (length must be a
     multiple of SEQ_BLOCK; cache buffers are allocated that way).
-    Delegates to the registered `"int8-block"` codec's quantization."""
+    Delegates to the registered `"int8-block"` codec's quantization,
+    whose block scale is amax / 127, an IEEE divide, as the reference
+    computes it eagerly (the codec, and through it prefill and the
+    int8-block wire and pages).  `reciprocal=True` gives the bits of the
+    reference's compiled requantize, where XLA multiplies by f32(1/127)
+    instead; the decode side's restores (`reshard_caches` and
+    `PagedKVPool.restore_page` after a cusz / fz / lossless wire) use it,
+    so restored caches are bit-identical to the reference's."""
     from repro_torch.codecs import int8 as I8
 
     assert x.shape[seq_axis] % SEQ_BLOCK == 0, (tuple(x.shape), seq_axis)
-    q, scale = I8.block_quantize(x, seq_axis, SEQ_BLOCK)
+    q, scale = I8.block_quantize(x, seq_axis, SEQ_BLOCK,
+                                 reciprocal=reciprocal)
     return QuantKV(q, scale)
 
 
@@ -54,40 +63,62 @@ def kv_dequantize(qkv: QuantKV, seq_axis: int,
     return I8.block_dequantize(qkv.q, qkv.scale, seq_axis, SEQ_BLOCK, dtype)
 
 
-def kv_update_block(qkv: QuantKV, new: torch.Tensor, pos: int,
-                    seq_axis: int) -> QuantKV:
+def kv_update_block_(qkv: QuantKV, new: torch.Tensor,
+                     pos: Union[int, torch.Tensor],
+                     seq_axis: int) -> QuantKV:
     """Write `new` (one token slot, already sized [..,1,..] on seq_axis)
-    into the quantized cache at `pos`.  The owning SEQ_BLOCK's scale is
-    monotonically widened (never shrunk) so previously written tokens keep
-    their bound.  Widening is per scale coordinate — the scale tensor has
-    one entry per (batch, head, dim) coordinate, so one coordinate's large
-    value must not widen (and thus requantize-destroy) the others; this
-    also keeps the all-zero s_max-extension blocks at the 1e-30 floor
-    until *their own* coordinate sees a value.  Returns a new QuantKV."""
-    from repro_torch.codecs.int8 import true_div
+    into the quantized cache at `pos`, IN PLACE.  The owning SEQ_BLOCK's
+    scale is monotonically widened (never shrunk) so previously written
+    tokens keep their bound.  Widening is per scale coordinate — the
+    scale tensor has one entry per (batch, head, dim) coordinate, so one
+    coordinate's large value must not widen (and thus requantize-destroy)
+    the others; this also keeps the all-zero s_max-extension blocks at
+    the 1e-30 floor until *their own* coordinate sees a value.
 
-    pos = int(pos)
+    `pos` is an int, or with `seq_axis` 1 a [B] integer tensor: row b
+    writes at pos[b] (the continuous scheduler's ragged slots; rows are
+    independent because the arithmetic is per coordinate).  The widened
+    scale is amax times f32(1/127), as the reference's compiled serve
+    step computes it; its eager `kv_update_block` divides, which differs
+    in the last bit of about one widened scale in twenty.  Returns
+    `qkv`."""
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        assert seq_axis == 1, seq_axis
+        q, scale = qkv.q, qkv.scale
+        pos = pos.to(device=q.device, dtype=torch.long)
+    else:
+        # one row: the seq axis becomes axis 1 of a [1, S, ...] view
+        q, scale, new = (t.movedim(seq_axis, 0)[None]
+                         for t in (qkv.q, qkv.scale, new))
+        pos = torch.full((1,), int(pos), dtype=torch.long, device=q.device)
+    B, S = q.shape[:2]
+    rows = torch.arange(B, device=q.device)
     blk = pos // SEQ_BLOCK
-    old_scale = qkv.scale.narrow(seq_axis, blk, 1)
-    need = true_div(new.abs().amax(dim=seq_axis, keepdim=True).to(torch.float32),
-                _QMAX)
-    floor = torch.tensor(SCALE_FLOOR, dtype=torch.float32,
-                         device=need.device)
-    new_scale = torch.maximum(old_scale, torch.maximum(need, floor))
+    old_scale = scale[rows, blk]                            # [B, ...]
+    # Python-scalar operands: an f32 op rounds them to f32 (the constants
+    # of the compiled reference), with no host-to-device copy
+    need = new[:, 0].abs().to(torch.float32) * (1.0 / _QMAX)
+    new_scale = torch.maximum(old_scale, need.clamp_min(SCALE_FLOOR))
     # requantize the block's existing tokens under the widened scale so
     # their dequantized values are preserved (bound becomes new_scale/2)
-    old_blk = qkv.q.narrow(seq_axis, blk * SEQ_BLOCK, SEQ_BLOCK)
-    requant = torch.round(old_blk.to(torch.float32)
-                          * (old_scale / new_scale)).clamp(-_QMAX, _QMAX
-                                                           ).to(torch.int8)
-    q = qkv.q.clone()
-    q.narrow(seq_axis, blk * SEQ_BLOCK, SEQ_BLOCK).copy_(requant)
-    qn = torch.round(new.to(torch.float32) / new_scale).clamp(-_QMAX, _QMAX
-                                                              ).to(torch.int8)
-    q.narrow(seq_axis, pos, 1).copy_(qn)
-    scale = qkv.scale.clone()
-    scale.narrow(seq_axis, blk, 1).copy_(new_scale)
-    return QuantKV(q, scale)
+    qb = q.unflatten(1, (S // SEQ_BLOCK, SEQ_BLOCK))
+    requant = torch.round(qb[rows, blk].to(torch.float32)
+                          * (old_scale / new_scale)[:, None]
+                          ).clamp(-_QMAX, _QMAX).to(torch.int8)
+    qb[rows, blk] = requant
+    q[rows, pos] = torch.round(new[:, 0].to(torch.float32) / new_scale
+                               ).clamp(-_QMAX, _QMAX).to(torch.int8)
+    scale[rows, blk] = new_scale
+    return qkv
+
+
+def kv_update_block(qkv: QuantKV, new: torch.Tensor,
+                    pos: Union[int, torch.Tensor],
+                    seq_axis: int) -> QuantKV:
+    """`kv_update_block_` on a copy: returns a new QuantKV and leaves
+    `qkv` as it was (the reference's functional form)."""
+    return kv_update_block_(QuantKV(qkv.q.clone(), qkv.scale.clone()),
+                            new, pos, seq_axis)
 
 
 # ---------------------------------------------------------------------------

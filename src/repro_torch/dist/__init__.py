@@ -1,1 +1,2 @@
-"""Distribution helpers of the port (only the shard planner so far)."""
+"""Distribution helpers of the port: shard planning and the
+single-process distribution context."""

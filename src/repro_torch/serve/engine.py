@@ -1,0 +1,291 @@
+"""Serving engine: prefill + batched synchronized decode with optional
+compressed KV cache, split into disaggregation-ready phases:
+
+  1. **prefill** — run the prompt through the parallel forward and build
+     the decode caches (optionally already in the in-memory QuantKV
+     compressed format).
+  2. **handoff** — ``encode_handoff`` turns every cache tensor into
+     per-SEQ_BLOCK-slab registry Containers (`int8-block` wire by
+     default; `cusz`, `fz` or `lossless`); the packed Containers — never
+     decoded f32 — are what crosses the prefill->decode boundary.
+  3. **reshard** — ``reshard_caches`` adopts the containers on the decode
+     side: int8-block payloads become the in-memory QuantKV cache
+     directly (no re-quantization round trip), other wires decode (on
+     the card: the codecs' CUDA kernels) and re-quantize.
+  4. **decode** — ``decode_tokens`` runs the one-token step in a loop.
+
+``generate`` composes 1+4.  The port runs on one device: a mesh is the
+distribution slice's work (ROADMAP §1.3) and raises here.  MoE, MLA and
+Mamba/SSM caches are the next slice and raise in the model.
+
+Sampling: greedy (``temperature=0``) is the reference's, token for token.
+Temperature sampling draws from ``softmax(logits / T)`` with a
+``torch.Generator``; it matches the reference's ``jax.random.categorical``
+in distribution only, not draw for draw.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from types import SimpleNamespace
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import codecs
+from repro_torch.codecs.base import input_device
+from repro_torch.core import kvcache as KVC
+from repro_torch.dist import context as dist_ctx
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    s_max: int = 2048
+    compressed_kv: bool = False
+    kv_codec: str = "int8-block"     # registry id of the in-memory KV codec
+    temperature: float = 0.0         # 0 = greedy
+    compute_dtype: torch.dtype = torch.bfloat16
+
+
+#: seq axis of every prefill cache entry ([n_periods, B, S, ...])
+HANDOFF_SEQ_AXIS = 2
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: prefill
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
+            extra=None):
+    """Run the prompt through the parallel forward, build decode caches.
+    `tokens` ([B, S] integers) go to the parameters' device.
+    Returns (last_logits [B,V], DecodeCaches, prompt_len)."""
+    params = M.cast_params(params, scfg.compute_dtype)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    logits, caches = M.forward(params, cfg, tokens, extra,
+                               compute_dtype=scfg.compute_dtype,
+                               collect_caches=True)
+    B, S = tokens.shape
+    S_total = S + cfg.n_prepend_embeds
+    kv_codec = (codecs.get_block_codec(scfg.kv_codec,
+                                       axis=HANDOFF_SEQ_AXIS,
+                                       block=KVC.SEQ_BLOCK)
+                if scfg.compressed_kv else None)
+
+    def extend(x):
+        """Pad the seq axis to s_max; under compressed_kv the full buffer
+        becomes the registry codec's payload, kept as the in-memory
+        QuantKV format the decode step indexes directly."""
+        ext = torch.zeros(x.shape[:2] + (scfg.s_max - S_total,)
+                          + x.shape[3:], dtype=x.dtype, device=x.device)
+        full = torch.cat([x, ext], dim=HANDOFF_SEQ_AXIS)
+        if kv_codec is not None:
+            cont = kv_codec.encode(full)
+            return KVC.QuantKV(cont.payload["q"], cont.payload["scale"])
+        return full
+
+    entries = tuple((extend(k), extend(v)) for k, v in caches)
+    return logits[:, -1, :], M.DecodeCaches(entries), S_total
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: decode
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig, scfg: ServeConfig):
+    """One-token decode for a synchronized batch: (params, token [B,1],
+    caches, cache_len) -> (logits [B,1,V], caches), caches written in
+    place."""
+
+    def step(params, token, caches, cache_len):
+        return M.decode_step(params, cfg, token, caches, cache_len,
+                             compute_dtype=scfg.compute_dtype,
+                             compressed_kv=scfg.compressed_kv)
+
+    return step
+
+
+@functools.lru_cache(maxsize=None)
+def get_serve_step(cfg: ModelConfig, scfg: ServeConfig):
+    """The serve step for `(cfg, scfg)`, one per key (configs are frozen
+    dataclasses, so the key is a stable hash)."""
+    return make_serve_step(cfg, scfg)
+
+
+def pick_token(logits: torch.Tensor, gen: Optional[torch.Generator],
+               scfg: ServeConfig) -> torch.Tensor:
+    """Greedy / temperature sampling from [B, V] logits -> [B] int32.
+    Greedy is `argmax` (the first index on ties, as in the reference);
+    temperature draws from `gen` and matches the reference in
+    distribution only."""
+    if scfg.temperature <= 0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / scfg.temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
+def decode_tokens(params, cfg: ModelConfig, scfg: ServeConfig,
+                  last_logits: torch.Tensor, caches: M.DecodeCaches,
+                  plen: int, n_new: int,
+                  generator: Optional[torch.Generator] = None):
+    """Synchronized-batch decode loop from prefilled (or resharded)
+    caches.  Works on a copy of `caches` (the step writes in place; the
+    caller's stay as they were).  Returns [B, n_new] int32."""
+    params = M.cast_params(params, scfg.compute_dtype)
+    step_fn = get_serve_step(cfg, scfg)
+    caches = M.clone_caches(caches)
+    tok = pick_token(last_logits, generator, scfg)[:, None]
+    outs = []
+    for i in range(n_new):
+        outs.append(tok[:, 0])
+        logits, caches = step_fn(params, tok, caches, plen + i)
+        tok = pick_token(logits[:, 0, :], generator, scfg)[:, None]
+    return torch.stack(outs, dim=1)
+
+
+def generate(params, cfg: ModelConfig, prompt, n_new: int,
+             scfg: ServeConfig, extra=None,
+             generator: Optional[torch.Generator] = None):
+    """Greedy/temperature generation for a batch of equal-length prompts
+    (prefill and decode on one device).  Returns [B, n_new] int32."""
+    params = M.cast_params(params, scfg.compute_dtype)
+    last_logits, caches, plen = prefill(params, cfg, prompt, scfg, extra)
+    return decode_tokens(params, cfg, scfg, last_logits, caches, plen,
+                         n_new, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Phases 2+3: compressed prefill->decode handoff
+# ---------------------------------------------------------------------------
+
+class KVHandoff(NamedTuple):
+    """Everything that crosses the prefill->decode boundary: per pattern
+    entry, a tuple of per-tensor Container tuples (attn K/V as per-seq-slab
+    wire containers).  No decoded f32 rides here."""
+    kinds: Tuple[str, ...]           # per entry: "kv"
+    entries: Tuple[Any, ...]
+    plen: int
+    wire: str
+
+
+#: telemetry of the most recent encode_handoff / reshard_caches call
+LAST_HANDOFF_STATS: Dict[str, Any] = {}
+LAST_RESHARD_STATS: Dict[str, Any] = {}
+
+
+def encode_handoff(caches: M.DecodeCaches, cfg: ModelConfig,
+                   scfg: ServeConfig, *, plen: int,
+                   wire: Optional[str] = None,
+                   nslabs: Optional[int] = None,
+                   wire_cfg: Optional[dict] = None) -> KVHandoff:
+    """Phase 2: encode the prefill caches into packed wire Containers.
+
+    `plen` (the prefill length, as returned by ``prefill``) rides in the
+    handoff so the decode side resumes from the right position.  `wire`
+    resolution: explicit arg > the armed
+    ``dist.context.use_kv_reshard_compress`` hook (an explicit disarm
+    resolves to "lossless") > "int8-block".  Cache tensors are sliced
+    into per-SEQ_BLOCK seq slabs (`nslabs` overrides the slab count) and
+    each slab is packed to its host storage form — the container
+    payloads are the bytes that move.  Updates ``LAST_HANDOFF_STATS``
+    with the wire accounting."""
+    M.require_dense(cfg)
+    wire = wire or dist_ctx.kv_reshard_codec() or "int8-block"
+    item = torch.bfloat16.itemsize
+    # reset at call START, not return: back-to-back sessions must never
+    # read the previous call's wire accounting, and a failed handoff
+    # leaves partial (not stale-successful) stats behind
+    LAST_HANDOFF_STATS.clear()
+    LAST_HANDOFF_STATS.update(
+        {"wire": wire, "tensors": 0, "containers": 0,
+         "wire_bytes": 0, "raw_bf16_bytes": 0, "lossless_fallback": 0})
+    stats = LAST_HANDOFF_STATS
+
+    def ship(x):
+        n = x.q.numel() if isinstance(x, KVC.QuantKV) else x.numel()
+        parts = KVC.kv_wire_encode(
+            x, HANDOFF_SEQ_AXIS, wire=wire, nslabs=nslabs,
+            source_dtype=scfg.compute_dtype, wire_cfg=wire_cfg)
+        if wire != "lossless":
+            # slabs the wire codec could not represent faithfully were
+            # re-encoded raw by kv_wire_encode (graceful degradation)
+            stats["lossless_fallback"] += sum(
+                1 for p in parts if p.header.codec == "lossless")
+        stats["tensors"] += 1
+        stats["containers"] += len(parts)
+        stats["wire_bytes"] += KVC.kv_wire_nbytes(parts)
+        stats["raw_bf16_bytes"] += n * item
+        return parts
+
+    entries = tuple((ship(k), ship(v)) for k, v in caches.entries)
+    return KVHandoff(("kv",) * len(entries), entries, int(plen), wire)
+
+
+def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
+                   *, mesh=None, device=None) -> M.DecodeCaches:
+    """Phase 3: adopt the handoff Containers as decode caches on `device`
+    (default CUDA; a mesh is not supported yet).
+
+    int8-block wire + compressed decode target: the payload (q + block
+    scales) IS the in-memory QuantKV format — it is concatenated in
+    payload space and placed directly, with **no f32 round trip and no
+    re-quantization**.  Any other combination decodes (and, for a
+    compressed target, re-quantizes).  Updates ``LAST_RESHARD_STATS``."""
+    M.require_dense(cfg)
+    if mesh is not None or dist_ctx.current_mesh() is not None:
+        raise NotImplementedError(
+            "placing caches on a device mesh is the distribution slice of "
+            "the port (ROADMAP §1.3); pass mesh=None")
+    dev = input_device(None, device)
+    # reset at call start (same contract as LAST_HANDOFF_STATS)
+    LAST_RESHARD_STATS.clear()
+    LAST_RESHARD_STATS.update({"tensors": 0, "adopted_quantkv": 0,
+                               "decoded": 0})
+    stats = LAST_RESHARD_STATS
+
+    def arrive(parts):
+        """One cache tensor's wire containers -> its decode-side form."""
+        stats["tensors"] += 1
+        # a slab that failed wire-codec validation arrives as "lossless";
+        # adoption/payload-concat need a homogeneous wire, so any mix
+        # routes through the per-part decode path (kv_wire_restore reads
+        # each part's own header)
+        part_codecs = {p.header.codec for p in parts}
+        wire_name = (parts[0].header.codec if len(part_codecs) == 1
+                     else "mixed")
+        if scfg.compressed_kv:
+            if wire_name == "int8-block":
+                stats["adopted_quantkv"] += 1
+                return KVC.kv_wire_adopt(parts, HANDOFF_SEQ_AXIS,
+                                         device=dev)
+            full = KVC.kv_wire_restore(parts, HANDOFF_SEQ_AXIS,
+                                       dtype=scfg.compute_dtype, device=dev)
+            stats["decoded"] += 1
+            return KVC.kv_quantize(full, HANDOFF_SEQ_AXIS, reciprocal=True)
+        # dense decode target
+        stats["decoded"] += 1
+        if wire_name == "int8-block":
+            codec = codecs.get_block_codec("int8-block",
+                                           axis=HANDOFF_SEQ_AXIS,
+                                           block=KVC.SEQ_BLOCK)
+            unpacked = [codec.unpack(p, dev) for p in parts]
+            merged = (unpacked[0] if len(unpacked) == 1 else
+                      codecs.concat_containers(
+                          unpacked, HANDOFF_SEQ_AXIS,
+                          codec.payload_axes(HANDOFF_SEQ_AXIS)))
+            return codec.decode(merged, like=SimpleNamespace(
+                shape=merged.header.shape, dtype=scfg.compute_dtype))
+        return KVC.kv_wire_restore(parts, HANDOFF_SEQ_AXIS,
+                                   dtype=scfg.compute_dtype, device=dev)
+
+    entries = []
+    for kind, entry in zip(handoff.kinds, handoff.entries):
+        if kind != "kv":
+            raise NotImplementedError(
+                f"handoff entry kind {kind!r}: MLA latents and Mamba state "
+                f"are the next slice of the port")
+        entries.append((arrive(entry[0]), arrive(entry[1])))
+    return M.DecodeCaches(tuple(entries))
