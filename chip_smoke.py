@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card: its
 three codecs (cusz, cusz-i, fz) with every CUDA kernel of their paths
-held against its plain PyTorch version, their consumers, and the dense
-model's serving path at qwen3-4b width.
+held against its plain PyTorch version, their consumers, and the serving
+path of three model families: dense (qwen3-4b), MLA + MoE
+(deepseek-v2-236b, 2 layers) and Mamba2/SSD (mamba2-1.3b).
 
 Run from the repository root, with no arguments:
 
@@ -68,11 +69,28 @@ Phases, each printing one JSON line:
             must preempt, with one evicted page encoded and restored
             again by the plain versions; then int8-block on the 8- and
             the 32-page pool for all 8, whose tokens must agree)
+  serve:deepseek:*  the same phases at deepseek-v2-236b's published
+            widths (d_model 5120, 128 heads, MLA q_lora 1536 / kv_lora
+            512 / rope 64, 160 routed experts top-6 of d_ff 1536 plus 2
+            shared, vocab 102400) with the depth cut to 2 layers (9.0 B
+            random f32 weights, cast once to bf16): `generate` also
+            counts the prefill's assignments dropped over capacity; the
+            handoff carries the MLA latent [2, 4, 1024, 576] on the four
+            wires (cusz / fz containers again by the plain versions);
+            the continuous runs take the qwen3-4b phase's requests and
+            pools and must give its schedule
+  serve:mamba2:*  mamba2-1.3b at its published width and depth (48
+            layers, 1.35 B weights): `generate`, one handoff (the state
+            [48, 4, 64, 128, 64] f32 and its conv tail cross lossless,
+            bit for bit) and the scheduler on 3 prompts of 256 / 384 /
+            512 tokens with the state sidecar, on an 8-page pool that
+            preempts against a 32-page one: equal tokens, the rehearsed
+            schedule
 
-Each of the last five is driven with the launch counts set to 0 just
-before it (each serve phase before itself) and read just after it;
-"timing" lines give each phase's seconds; `--seed` sets the data of the
-last four.
+Each of the consumer and serve phases is driven with the launch counts
+set to 0 just before it (each serve phase before itself) and read just
+after it; "timing" lines give each phase's seconds; `--seed` sets the
+data of the consumer and serve phases.
 
 then the `{"kernels": [...]}` summary and, last, the device line.  Any
 failed check raises, so the script exits nonzero; without a CUDA device it
@@ -1107,6 +1125,22 @@ SERVE = dict(batch=4, prompt=512, s_max=1024, new=16, requests=8,
              # 8-page pool they preempt 22 times and move 70 pages each
              # way (all 8 move 350, ~0.14 s each at full width)
              cusz_requests=4)
+# (steps, preemptions, pages evicted, pages restored) of the continuous
+# runs at the default --seed: with EOS off the schedule depends only on
+# the requests' lengths and the pool, not on the model or the codec;
+# tests/test_torch_serve.py rehearses both schedules on the CPU
+SERVE_COUNTS = {"cusz": (26, 22, 70, 70), "int8-block": (52, 105, 350, 350),
+                "int8-block-big": (32, 0, 0, 0)}
+# deepseek-v2-236b (src/repro/configs/deepseek_v2_236b.py) at its
+# published widths, depth cut to 2 of 60 layers: 9.0 B f32 parameters
+# (36 GB, 54 GB during the one bf16 cast); three layers would pass 78 GB
+DEEPSEEK_LAYERS = 2
+# mamba2-1.3b at its published width and depth: 3 prompts of whole SSD
+# chunks (128 tokens) on 3 slots, 8 pool pages tight enough to preempt
+MAMBA2 = dict(prompts=(256, 384, 512), max_new=16, max_batch=3,
+              tight_pages=8, big_pages=32)
+MAMBA2_COUNTS = {"int8-block": (32, 31, 123, 123),
+                 "int8-block-big": (16, 0, 0, 0)}
 WIRES = ("int8-block", "cusz", "fz", "lossless")
 # the kernels each handoff wire must launch (kernels 1-6; 1, 2, 9, 10)
 WIRE_KERNELS = {"cusz": PATH_KERNELS["cusz"], "fz": PATH_KERNELS["fz"],
@@ -1116,6 +1150,14 @@ WIRE_KERNELS = {"cusz": PATH_KERNELS["cusz"], "fz": PATH_KERNELS["fz"],
 def same_qkv(torch, a, b) -> bool:
     return torch.equal(a.q, b.q) and torch.equal(
         a.scale.view(torch.int32), b.scale.view(torch.int32))
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two dense tensors (f32 or bf16), bit for bit."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.view(ints), b.view(ints))
 
 
 def handoff_bound_held(torch, KV, parts, src_bf16, seq_axis: int):
@@ -1185,15 +1227,17 @@ def plain_route_check(torch, dispatch, encode, restore, parts,
     return out
 
 
-def serve_requests(np, Req, cfg, seed: int):
-    """The continuous phase's requests, from `seed`."""
+def serve_requests(np, Req, vocab: int, seed: int):
+    """The continuous phase's requests, from `seed`: drawn at qwen3-4b's
+    vocabulary whatever the model (so every model gets the same lengths,
+    arrivals and max_new), token ids taken modulo `vocab`."""
     sizes = SERVE
     rng = np.random.default_rng(seed + 1)
     lo, hi = sizes["plen"]
     return [Req(rid=i,
-                prompt=rng.integers(1, cfg.vocab,
+                prompt=rng.integers(1, QWEN3_4B["vocab"],
                                     size=int(rng.integers(lo, hi + 1))
-                                    ).astype(np.int32),
+                                    ).astype(np.int32) % vocab,
                 max_new=int(rng.integers(sizes["max_new"][0],
                                          sizes["max_new"][1] + 1)),
                 arrival=int(rng.integers(sizes["arrivals"][0],
@@ -1232,31 +1276,305 @@ def profile_decode(torch, dev, E, params, cfg, scfg, last, caches, plen,
                      "calls_per_step": c / steps} for k, t, c in rows[:6]]}
 
 
-def phase_serve(torch, dev, seed: int) -> dict:
+class ServeRun:
+    """One model's serve phases on the card (`prefix` names them:
+    "serve", "serve:deepseek", "serve:mamba2"): its weights, the launch
+    counts summed over its phases, and each phase's record."""
+
+    def __init__(self, torch, dev, cfg, params, prefix: str):
+        from repro_torch.core import kvcache as KV
+        from repro_torch.kernels import dispatch
+        from repro_torch.serve import engine as E
+        from repro_torch.serve import pool as P
+        from repro_torch.serve import scheduler as S
+
+        self.torch, self.dev, self.cfg = torch, dev, cfg
+        self.params, self.prefix = params, prefix
+        self.E, self.P, self.S, self.KV = E, P, S, KV
+        self.dispatch = dispatch
+        self.total = {name: 0 for name in dispatch.launch_counts()}
+        self.scfg = E.ServeConfig(s_max=SERVE["s_max"], compressed_kv=True)
+
+    def _add(self, counts) -> dict:
+        for n, v in counts.items():
+            self.total[n] += v
+        return {k: v for k, v in counts.items() if v}
+
+    def generate(self, prompt, n_new: int, extra: dict) -> None:
+        """`generate`, then prefill and decode_tokens apart (timed), and a
+        device-only profiler window over 2 decode steps.  Keeps the
+        tokens, the last logits and the caches for `disagg`."""
+        torch, E, cfg, scfg = self.torch, self.E, self.cfg, self.scfg
+        params = self.params
+        B = prompt.shape[0]
+        t_phase = time.perf_counter()
+        self.dispatch.reset_launches()
+        t0 = time.perf_counter()
+        want = E.generate(params, cfg, prompt, n_new, scfg)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        last, caches, plen = E.prefill(params, cfg, prompt, scfg)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks = E.decode_tokens(params, cfg, scfg, last, caches, plen, n_new)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        launches = self._add(self.dispatch.launch_counts())
+        prof = profile_decode(torch, self.dev, E, params, cfg, scfg, last,
+                              caches, plen)
+        ok = torch.equal(toks, want) and tuple(toks.shape) == (B, n_new) \
+            and bool(((toks >= 0) & (toks < cfg.vocab)).all()) \
+            and bool(torch.isfinite(last).all())
+        emit({"phase": f"{self.prefix}:generate", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "params": sum(t.numel() for t in _leaves(params)),
+              "weights_dtype": "bfloat16 (cast once)",
+              "batch": B, "prompt_len": plen, "s_max": scfg.s_max,
+              "compressed_kv": True, "new_tokens": n_new, **extra,
+              "generate_first_call_s": t_gen, "prefill_s": t_prefill,
+              "prefill_tokens_per_s": B * plen / t_prefill,
+              "decode_s": t_decode,
+              "decode_tokens_per_s": B * n_new / t_decode,
+              "decode_ms_per_step": t_decode / n_new * 1e3,
+              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+              "tokens_equal_generate": torch.equal(toks, want),
+              "first_tokens": toks[0, :8].tolist(), "decode_profile": prof,
+              "launches": launches,
+              "phase_s": time.perf_counter() - t_phase})
+        require(ok, f"{self.prefix}:generate: tokens differ between "
+                "generate and prefill + decode_tokens, or are out of range, "
+                "or the logits are not finite")
+        self.want, self.last, self.caches, self.plen = want, last, caches, plen
+
+    def disagg(self, wire: str) -> dict:
+        """prefill's caches -> encode_handoff -> reshard_caches ->
+        decode_tokens over `wire`: the cache leaves (GQA K / V, MLA
+        latents) on the wire codec, Mamba state lossless.  int8-block
+        adopts bit for bit and gives generate's tokens; the lossy wires
+        hold their bound, and cusz / fz make the first leaf's containers
+        again by the plain versions, byte for byte; Mamba state arrives
+        bit for bit."""
+        torch, E, KV, S = self.torch, self.E, self.KV, self.S
+        cfg, scfg, caches = self.cfg, self.scfg, self.caches
+        n_new = self.want.shape[1]
+        leaves = S._attn_leaves(cfg, caches.entries)
+        states = S._state_entries(cfg, caches.entries)
+        torch.cuda.synchronize()
+        t_phase = time.perf_counter()
+        self.dispatch.reset_launches()
+        t0 = time.perf_counter()
+        h = E.encode_handoff(caches, cfg, scfg, plen=self.plen, wire=wire)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        hs = dict(E.LAST_HANDOFF_STATS)
+        t0 = time.perf_counter()
+        rc = E.reshard_caches(h, cfg, scfg, device=self.dev)
+        torch.cuda.synchronize()
+        t_res = time.perf_counter() - t0
+        rs = dict(E.LAST_RESHARD_STATS)
+        t0 = time.perf_counter()
+        got = E.decode_tokens(self.params, cfg, scfg, self.last, rc,
+                              h.plen, n_new)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        counts = self.dispatch.launch_counts()
+        rec = {"phase": f"{self.prefix}:disagg:{wire}",
+               "wire_bytes": hs["wire_bytes"],
+               "raw_bf16_bytes": hs["raw_bf16_bytes"],
+               "ratio": hs["raw_bf16_bytes"] / hs["wire_bytes"],
+               "containers": hs["containers"],
+               "lossless_fallback": hs["lossless_fallback"],
+               "leaf_shapes": sorted({tuple(getattr(c, "q", c).shape)
+                                      for c in leaves}),
+               "encode_s": t_enc, "reshard_s": t_res, "decode_s": t_dec,
+               "adopted_quantkv": rs["adopted_quantkv"],
+               "decoded": rs["decoded"],
+               "tokens_equal_generate": torch.equal(got, self.want),
+               "launches": self._add(counts)}
+        missing = [k for k in WIRE_KERNELS[wire] if counts[k] == 0] \
+            if leaves else []
+        rec["kernels_missing"] = missing
+        ok = not missing and tuple(got.shape) == tuple(self.want.shape)
+        state_exact = all(same_bits(torch, a, b)
+                          for new, old in zip(S._state_entries(cfg,
+                                                               rc.entries),
+                                              states)
+                          for a, b in zip(new, old))
+        rec["state_bit_exact"] = state_exact if states else None
+        ok &= state_exact and rs["tensors"] == hs["tensors"]
+        if wire == "int8-block":
+            exact = all(same_qkv(torch, a, b) for a, b in zip(
+                S._attn_leaves(cfg, rc.entries), leaves))
+            rec["adopted_bit_exact"] = exact
+            ok &= exact and rs["adopted_quantkv"] == len(leaves) \
+                and torch.equal(got, self.want)
+        else:
+            parts = [pt for kind, entry in zip(h.kinds, h.entries)
+                     if kind != "state" for pt in entry]
+            worst, held = 0.0, True
+            for pt, src in zip(parts, leaves):
+                w, hd = handoff_bound_held(
+                    torch, KV, pt,
+                    KV.kv_dequantize(src, E.HANDOFF_SEQ_AXIS,
+                                     torch.bfloat16), E.HANDOFF_SEQ_AXIS)
+                worst, held = max(worst, w), held and hd
+            rec.update(max_err_over_bound=worst, bound_held=held)
+            ok &= held and rs["decoded"] == hs["tensors"]
+            if wire in ("cusz", "fz"):
+                chk = plain_route_check(
+                    torch, self.dispatch,
+                    lambda: KV.kv_wire_encode(
+                        leaves[0], E.HANDOFF_SEQ_AXIS, wire=wire,
+                        source_dtype=scfg.compute_dtype),
+                    lambda ps: KV.kv_wire_restore(
+                        ps, E.HANDOFF_SEQ_AXIS, dtype=torch.bfloat16,
+                        device=self.dev),
+                    parts[0], torch.equal)
+                rec["plain_route_leaf"] = {
+                    "shape": list(leaves[0].q.shape), **chk}
+                ok &= chk["ok"]
+        rec["phase_s"] = time.perf_counter() - t_phase
+        emit(rec)
+        require(ok, f"{self.prefix}:disagg:{wire}: {rec}")
+        return rec
+
+    def drop_handoff_state(self) -> None:
+        del self.caches, self.last
+        self.torch.cuda.empty_cache()
+
+    def continuous(self, runs) -> dict:
+        """The continuous scheduler, per (label, evict codec, pool pages,
+        requests) run; the cusz run records the first slab it evicts and
+        encodes and restores it again through the plain versions.
+        Returns {label: (finished, scheduler)}."""
+        torch, P, S, KV = self.torch, self.P, self.S, self.KV
+        evicted = []
+        keep_evict = P._evict_slab
+
+        def recording_evict(slab, seq_axis, codec, source_dtype,
+                            codec_cfg):
+            """The pool's eviction leg, keeping the first slab it encodes
+            (and its containers) for the plain-route check."""
+            parts = keep_evict(slab, seq_axis, codec, source_dtype,
+                               codec_cfg)
+            if not evicted:
+                evicted.append((KV.QuantKV(slab.q.clone(),
+                                           slab.scale.clone()),
+                                seq_axis, codec, source_dtype, codec_cfg,
+                                parts))
+            return parts
+
+        out = {}
+        for label, codec, pages, reqs, max_batch in runs:
+            torch.cuda.synchronize()
+            P._evict_slab = recording_evict if label == "cusz" \
+                else keep_evict
+            self.dispatch.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                fin, sched = S.run_continuous(
+                    self.params, self.cfg, self.scfg,
+                    S.SchedulerConfig(max_batch=max_batch, pool_pages=pages,
+                                      evict_codec=codec), reqs)
+                torch.cuda.synchronize()
+            finally:
+                P._evict_slab = keep_evict
+            dt = time.perf_counter() - t0
+            counts = self.dispatch.launch_counts()
+            st = sched.pool.stats()
+            n_tok = sum(len(f["tokens"]) for f in fin.values())
+            rec = {"phase": f"{self.prefix}:continuous:{label}",
+                   "requests": len(fin),
+                   "prompt_lens": [len(r.prompt) for r in reqs],
+                   "max_batch": max_batch, "pool_pages": pages,
+                   "evict_codec": st["evict_codec"], "decode_steps":
+                   sched.n_steps, "preemptions": sched.preemptions,
+                   "evicted_pages": st["evicted_pages"],
+                   "restored_pages": st["restored_pages"],
+                   "host_bytes_evicted": st["evicted_bytes"],
+                   "peak_pages": st["peak_used"], "tokens": n_tok,
+                   "seconds": dt, "tokens_per_s": n_tok / dt,
+                   "launches": self._add(counts)}
+            out[label] = (fin, sched)
+            ok = len(fin) == len(reqs) and all(
+                len(fin[r.rid]["tokens"]) == r.max_new for r in reqs) \
+                and sched.pool.used_pages == 0 and not sched.states
+            if label == "cusz":
+                missing = [k for k in PATH_KERNELS["cusz"]
+                           if counts[k] == 0]
+                rec["kernels_missing"] = missing
+                ok &= sched.preemptions > 0 and st["evicted_pages"] > 0 \
+                    and st["restored_pages"] > 0 and not missing \
+                    and len(evicted) == 1
+                if evicted:
+                    slab, ax, ev_codec, src_dt, ev_cfg, parts = evicted[0]
+                    chk = plain_route_check(
+                        torch, self.dispatch,
+                        lambda: keep_evict(slab, ax, ev_codec, src_dt,
+                                           ev_cfg),
+                        lambda ps: P._restore_slab(ps, ax, src_dt,
+                                                   self.dev),
+                        parts, lambda a, b: same_qkv(torch, a, b))
+                    rec["plain_route_page"] = {
+                        "slab_shape": list(slab.q.shape), **chk}
+                    ok &= chk["ok"]
+            rec["phase_s"] = time.perf_counter() - t0
+            emit(rec)
+            require(ok, f"{self.prefix}:continuous:{label}: {rec}")
+        return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def schedule_counts(sched) -> tuple:
+    st = sched.pool.stats()
+    return (sched.n_steps, sched.preemptions, st["evicted_pages"],
+            st["restored_pages"])
+
+
+def continuous_same_tokens(name: str, runs, tight: str, big: str) -> None:
+    """The tight pool's tokens (it preempted) equal the big pool's."""
+    (t_fin, t_sched), (b_fin, b_sched) = runs[tight], runs[big]
+    same = all(t_fin[r]["tokens"] == b_fin[r]["tokens"] for r in t_fin)
+    emit({"phase": name, "tight_equals_big": same,
+          "tight_preemptions": t_sched.preemptions,
+          "big_preemptions": b_sched.preemptions})
+    require(same and t_sched.preemptions > 0,
+            f"{name}: tight-pool tokens differ from the big pool's (or the "
+            "tight pool never preempted)")
+
+
+def random_prompt(torch, np, cfg, dev, batch: int, length: int, seed: int):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, length)).astype(np.int32)).to(dev)
+
+
+def phase_serve(torch, dev, seed: int) -> tuple:
     """The serving path at qwen3-4b's published width and depth: generate
     (prefill + 16 greedy tokens), the disaggregated prefill -> handoff ->
     reshard -> decode over the four wires, and the continuous scheduler
     on a paged pool tight enough to preempt.  Random f32 weights from
     `seed`, cast once to bf16.  Returns the launch counts summed over the
-    phases (each driven with the counts set to 0 just before it)."""
+    phases (each driven with the counts set to 0 just before it) and the
+    continuous runs' (steps, preemptions, evicted, restored)."""
     import numpy as np
 
     from repro_torch import configs
-    from repro_torch.core import kvcache as KV
-    from repro_torch.io.checkpoint import _leaves_with_path
-    from repro_torch.kernels import dispatch
     from repro_torch.models import model as M
-    from repro_torch.serve import engine as E
-    from repro_torch.serve import pool as P
     from repro_torch.serve import scheduler as S
 
     cfg, sizes = configs.get("qwen3-4b"), SERVE
-    total = {name: 0 for name in dispatch.launch_counts()}
-
-    def add(counts):
-        for n, v in counts.items():
-            total[n] += v
-
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1265,207 +1583,156 @@ def phase_serve(torch, dev, seed: int) -> dict:
                            torch.bfloat16)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    n_params = sum(t.numel() for _, t in _leaves_with_path(params))
-    scfg = E.ServeConfig(s_max=sizes["s_max"], compressed_kv=True)
-    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (sizes["batch"], sizes["prompt"])).astype(np.int32)
-    ).to(dev)
-    B, n_new = sizes["batch"], sizes["new"]
-
-    # -- serve:generate ----------------------------------------------------
-    t_phase = time.perf_counter()
-    dispatch.reset_launches()
-    t0 = time.perf_counter()
-    want = E.generate(params, cfg, prompt, n_new, scfg)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    last, caches, plen = E.prefill(params, cfg, prompt, scfg)
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    toks = E.decode_tokens(params, cfg, scfg, last, caches, plen, n_new)
-    torch.cuda.synchronize()
-    t_decode = time.perf_counter() - t0
-    add(dispatch.launch_counts())
-    prof = profile_decode(torch, dev, E, params, cfg, scfg, last, caches,
-                          plen)
-    ok = torch.equal(toks, want) and tuple(toks.shape) == (B, n_new) \
-        and bool(((toks >= 0) & (toks < cfg.vocab)).all()) \
-        and bool(torch.isfinite(last).all())
-    emit({"phase": "serve:generate", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "params": n_params, "weights_dtype": "bfloat16 (cast once)",
-          "batch": B, "prompt_len": plen, "s_max": scfg.s_max,
-          "compressed_kv": True, "new_tokens": n_new,
-          "init_and_cast_s": t_init, "generate_first_call_s": t_gen,
-          "prefill_s": t_prefill,
-          "prefill_tokens_per_s": B * plen / t_prefill,
-          "decode_s": t_decode, "decode_tokens_per_s": B * n_new / t_decode,
-          "decode_ms_per_step": t_decode / n_new * 1e3,
-          "peak_device_bytes": torch.cuda.max_memory_allocated(),
-          "tokens_equal_generate": torch.equal(toks, want),
-          "first_tokens": toks[0, :8].tolist(), "decode_profile": prof,
-          "phase_s": time.perf_counter() - t_phase})
-    require(ok, "serve:generate: tokens differ between generate and "
-            "prefill + decode_tokens, or are out of range")
-
-    # -- serve:disagg:<wire> -----------------------------------------------
-    src_bf16 = [KV.kv_dequantize(c, E.HANDOFF_SEQ_AXIS, torch.bfloat16)
-                for kv in caches.entries for c in kv]
+    run = ServeRun(torch, dev, cfg, params, "serve")
+    run.generate(random_prompt(torch, np, cfg, dev, sizes["batch"],
+                               sizes["prompt"], seed), sizes["new"],
+                 {"init_and_cast_s": t_init})
     for wire in WIRES:
-        torch.cuda.synchronize()
-        t_phase = time.perf_counter()
-        dispatch.reset_launches()
-        t0 = time.perf_counter()
-        h = E.encode_handoff(caches, cfg, scfg, plen=plen, wire=wire)
-        torch.cuda.synchronize()
-        t_enc = time.perf_counter() - t0
-        hs = dict(E.LAST_HANDOFF_STATS)
-        t0 = time.perf_counter()
-        rc = E.reshard_caches(h, cfg, scfg, device=dev)
-        torch.cuda.synchronize()
-        t_res = time.perf_counter() - t0
-        rs = dict(E.LAST_RESHARD_STATS)
-        t0 = time.perf_counter()
-        got = E.decode_tokens(params, cfg, scfg, last, rc, h.plen, n_new)
-        torch.cuda.synchronize()
-        t_dec = time.perf_counter() - t0
-        counts = dispatch.launch_counts()
-        add(counts)
-        rec = {"phase": f"serve:disagg:{wire}", "wire_bytes":
-               hs["wire_bytes"], "raw_bf16_bytes": hs["raw_bf16_bytes"],
-               "ratio": hs["raw_bf16_bytes"] / hs["wire_bytes"],
-               "containers": hs["containers"],
-               "lossless_fallback": hs["lossless_fallback"],
-               "encode_s": t_enc, "reshard_s": t_res, "decode_s": t_dec,
-               "adopted_quantkv": rs["adopted_quantkv"],
-               "decoded": rs["decoded"],
-               "tokens_equal_generate": torch.equal(got, want),
-               "launches": {k: v for k, v in counts.items() if v}}
-        missing = [k for k in WIRE_KERNELS[wire] if counts[k] == 0]
-        rec["kernels_missing"] = missing
-        ok = not missing and tuple(got.shape) == (B, n_new)
-        if wire == "int8-block":
-            exact = all(same_qkv(torch, a, b)
-                        for kv_a, kv_b in zip(rc.entries, caches.entries)
-                        for a, b in zip(kv_a, kv_b))
-            rec["adopted_bit_exact"] = exact
-            ok &= exact and rs["adopted_quantkv"] == 2 * len(cfg.pattern) \
-                and torch.equal(got, want)
-        else:
-            parts = [p for kv in h.entries for p in kv]
-            worst, held = 0.0, True
-            for pt, src in zip(parts, src_bf16):
-                w, hd = handoff_bound_held(torch, KV, pt, src,
-                                           E.HANDOFF_SEQ_AXIS)
-                worst, held = max(worst, w), held and hd
-            rec.update(max_err_over_bound=worst, bound_held=held)
-            ok &= held and rs["decoded"] == 2 * len(cfg.pattern)
-            if wire in ("cusz", "fz"):
-                kq = caches.entries[0][0]
-                chk = plain_route_check(
-                    torch, dispatch,
-                    lambda: KV.kv_wire_encode(
-                        kq, E.HANDOFF_SEQ_AXIS, wire=wire,
-                        source_dtype=scfg.compute_dtype),
-                    lambda ps: KV.kv_wire_restore(
-                        ps, E.HANDOFF_SEQ_AXIS, dtype=torch.bfloat16,
-                        device=dev),
-                    h.entries[0][0], torch.equal)
-                rec["plain_route_k"] = chk
-                ok &= chk["ok"]
-        rec["phase_s"] = time.perf_counter() - t_phase
-        emit(rec)
-        require(ok, f"serve:disagg:{wire}: {rec}")
-        del h, rc
-    del caches, src_bf16, last
+        run.disagg(wire)
+    run.drop_handoff_state()
+    reqs = serve_requests(np, S.Request, cfg.vocab, seed)
+    runs = run.continuous(
+        (("cusz", None, sizes["tight_pages"],
+          reqs[:sizes["cusz_requests"]], sizes["max_batch"]),
+         ("int8-block", "int8-block", sizes["tight_pages"], reqs,
+          sizes["max_batch"]),
+         ("int8-block-big", "int8-block", sizes["big_pages"], reqs,
+          sizes["max_batch"])))
+    continuous_same_tokens("serve:continuous", runs, "int8-block",
+                           "int8-block-big")
+    counts = {k: schedule_counts(v[1]) for k, v in runs.items()}
+    total = run.total
+    del params, run, runs
     torch.cuda.empty_cache()
+    return total, counts
 
-    # -- serve:continuous --------------------------------------------------
-    all_reqs = serve_requests(np, S.Request, cfg, seed)
-    evicted = []
-    keep_evict = P._evict_slab
 
-    def recording_evict(slab, seq_axis, codec, source_dtype, codec_cfg):
-        """The pool's eviction leg, keeping the first slab it encodes
-        (and its containers) for the plain-route check."""
-        parts = keep_evict(slab, seq_axis, codec, source_dtype, codec_cfg)
-        if not evicted:
-            evicted.append((KV.QuantKV(slab.q.clone(), slab.scale.clone()),
-                            seq_axis, codec, source_dtype, codec_cfg,
-                            parts))
-        return parts
+def phase_serve_deepseek(torch, dev, seed: int, qwen_counts) -> dict:
+    """MLA + MoE serving at deepseek-v2-236b's published widths, depth cut
+    to DEEPSEEK_LAYERS: generate (with the number of assignments dropped
+    over capacity in prefill), the disaggregated handoff of the latent
+    cache over the four wires, and the continuous scheduler on the
+    qwen3-4b phase's requests and pools, whose counts must be that
+    phase's (and the rehearsed ones at the default seed)."""
+    import dataclasses
 
-    runs = {}
-    for label, codec, pages in (("cusz", None, sizes["tight_pages"]),
-                                ("int8-block", "int8-block",
-                                 sizes["tight_pages"]),
-                                ("int8-block-big", "int8-block",
-                                 sizes["big_pages"])):
-        reqs = all_reqs[:sizes["cusz_requests"]] if label == "cusz" \
-            else all_reqs
-        torch.cuda.synchronize()
-        P._evict_slab = recording_evict if label == "cusz" else keep_evict
-        dispatch.reset_launches()
-        t0 = time.perf_counter()
-        try:
-            fin, sched = S.run_continuous(
-                params, cfg, scfg,
-                S.SchedulerConfig(max_batch=sizes["max_batch"],
-                                  pool_pages=pages, evict_codec=codec),
-                reqs)
-            torch.cuda.synchronize()
-        finally:
-            P._evict_slab = keep_evict
-        dt = time.perf_counter() - t0
-        counts = dispatch.launch_counts()
-        add(counts)
-        st = sched.pool.stats()
-        n_tok = sum(len(f["tokens"]) for f in fin.values())
-        rec = {"phase": f"serve:continuous:{label}", "requests": len(fin),
-               "prompt_lens": [len(r.prompt) for r in reqs],
-               "max_batch": sizes["max_batch"], "pool_pages": pages,
-               "evict_codec": st["evict_codec"], "decode_steps":
-               sched.n_steps, "preemptions": sched.preemptions,
-               "evicted_pages": st["evicted_pages"],
-               "restored_pages": st["restored_pages"],
-               "host_bytes_evicted": st["evicted_bytes"],
-               "peak_pages": st["peak_used"], "tokens": n_tok,
-               "seconds": dt, "tokens_per_s": n_tok / dt,
-               "launches": {k: v for k, v in counts.items() if v}}
-        runs[label] = (fin, sched)
-        ok = len(fin) == len(reqs) and all(
-            len(fin[r.rid]["tokens"]) == r.max_new for r in reqs) \
-            and sched.pool.used_pages == 0
-        if label == "cusz":
-            missing = [k for k in PATH_KERNELS["cusz"] if counts[k] == 0]
-            rec["kernels_missing"] = missing
-            ok &= sched.preemptions > 0 and st["evicted_pages"] > 0 \
-                and st["restored_pages"] > 0 and not missing \
-                and len(evicted) == 1
-            if evicted:
-                slab, ax, ev_codec, src_dt, ev_cfg, parts = evicted[0]
-                chk = plain_route_check(
-                    torch, dispatch,
-                    lambda: keep_evict(slab, ax, ev_codec, src_dt, ev_cfg),
-                    lambda ps: P._restore_slab(ps, ax, src_dt, dev),
-                    parts, lambda a, b: same_qkv(torch, a, b))
-                rec["plain_route_page"] = {"slab_shape": list(slab.q.shape),
-                                           **chk}
-                ok &= chk["ok"]
-        rec["phase_s"] = time.perf_counter() - t0
-        emit(rec)
-        require(ok, f"serve:continuous:{label}: {rec}")
-    tight, big = runs["int8-block"][0], runs["int8-block-big"][0]
-    same = all(tight[r]["tokens"] == big[r]["tokens"] for r in tight)
-    emit({"phase": "serve:continuous", "int8_block_tight_equals_big": same,
-          "tight_preemptions": runs["int8-block"][1].preemptions,
-          "big_preemptions": runs["int8-block-big"][1].preemptions})
-    require(same and runs["int8-block"][1].preemptions > 0,
-            "serve:continuous: int8-block tight-pool tokens differ from "
-            "the big pool's (or the tight pool never preempted)")
-    del params, runs
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.serve import scheduler as S
+
+    cfg = dataclasses.replace(configs.get("deepseek-v2-236b"),
+                              n_layers=DEEPSEEK_LAYERS)
+    sizes = SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = M.cast_params(M.init_params(gen, cfg, device=dev),
+                           torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    prompt = random_prompt(torch, np, cfg, dev, sizes["batch"],
+                           sizes["prompt"], seed)
+
+    # the assignments prefill drops over capacity (a prefill of its own,
+    # outside the timed phases: reading the counts syncs per layer)
+    seen, keep_route = [], moe.route
+
+    def recording_route(p, c, x):
+        r = keep_route(p, c, x)
+        seen.append((int((~r.keep).sum()), r.keep.numel(), r.cap))
+        return r
+
+    moe.route = recording_route
+    try:
+        run = ServeRun(torch, dev, cfg, params, "serve:deepseek")
+        run.E.prefill(params, cfg, prompt, run.scfg)
+    finally:
+        moe.route = keep_route
+    torch.cuda.reset_peak_memory_stats()
+    run.generate(prompt, sizes["new"], {
+        "depth_cut": f"{cfg.n_layers} of 60 layers",
+        "init_and_cast_s": t_init, "init_peak_device_bytes": init_peak,
+        "prefill_dropped_assignments": sum(d for d, _, _ in seen),
+        "prefill_assignments": sum(n for _, n, _ in seen),
+        "prefill_capacity": seen[0][2]})
+    for wire in WIRES:
+        run.disagg(wire)
+    run.drop_handoff_state()
+    reqs = serve_requests(np, S.Request, cfg.vocab, seed)
+    runs = run.continuous(
+        (("cusz", None, sizes["tight_pages"],
+          reqs[:sizes["cusz_requests"]], sizes["max_batch"]),
+         ("int8-block", "int8-block", sizes["tight_pages"], reqs,
+          sizes["max_batch"]),
+         ("int8-block-big", "int8-block", sizes["big_pages"], reqs,
+          sizes["max_batch"])))
+    continuous_same_tokens("serve:deepseek:continuous", runs, "int8-block",
+                           "int8-block-big")
+    counts = {k: schedule_counts(v[1]) for k, v in runs.items()}
+    emit({"phase": "serve:deepseek:schedule", "counts": counts,
+          "qwen3_4b_counts": qwen_counts,
+          "rehearsed": SERVE_COUNTS if seed == 0 else None})
+    require(counts == qwen_counts and (seed != 0 or counts == SERVE_COUNTS),
+            f"serve:deepseek: schedule {counts} differs from the qwen3-4b "
+            f"phase's {qwen_counts} or the rehearsal's {SERVE_COUNTS}")
+    total = run.total
+    del params, run, runs
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_mamba2(torch, dev, seed: int) -> dict:
+    """Mamba2/SSD serving at mamba2-1.3b's published width and depth:
+    generate, the disaggregated handoff (the state crosses lossless, bit
+    for bit) and the continuous scheduler with the state sidecar on a
+    pool tight enough to preempt, whose tokens must equal a big pool's
+    and whose counts the rehearsal's."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve import scheduler as S
+
+    cfg, sizes = configs.get("mamba2-1.3b"), SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = M.cast_params(M.init_params(gen, cfg, device=dev),
+                           torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    run = ServeRun(torch, dev, cfg, params, "serve:mamba2")
+    run.generate(random_prompt(torch, np, cfg, dev, sizes["batch"],
+                               sizes["prompt"], seed), sizes["new"],
+                 {"init_and_cast_s": t_init})
+    run.disagg("int8-block")
+    run.drop_handoff_state()
+    rng = np.random.default_rng(seed + 2)
+    reqs = [S.Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=n
+                                                 ).astype(np.int32),
+                      max_new=MAMBA2["max_new"])
+            for i, n in enumerate(MAMBA2["prompts"])]
+    runs = run.continuous(
+        (("int8-block", "int8-block", MAMBA2["tight_pages"], reqs,
+          MAMBA2["max_batch"]),
+         ("int8-block-big", "int8-block", MAMBA2["big_pages"], reqs,
+          MAMBA2["max_batch"])))
+    continuous_same_tokens("serve:mamba2:continuous", runs, "int8-block",
+                           "int8-block-big")
+    counts = {k: schedule_counts(v[1]) for k, v in runs.items()}
+    emit({"phase": "serve:mamba2:schedule", "counts": counts,
+          "rehearsed": MAMBA2_COUNTS})
+    require(counts == MAMBA2_COUNTS,
+            f"serve:mamba2: schedule {counts} differs from the "
+            f"rehearsal's {MAMBA2_COUNTS}")
+    total = run.total
+    del params, run, runs
     torch.cuda.empty_cache()
     return total
 
@@ -1505,7 +1772,13 @@ def main() -> int:
     per_path["kv"] = timed("kv", phase_kv, torch, dev, args.seed)
     per_path["checkpoint"] = timed("checkpoint", phase_checkpoint, torch,
                                    dev, args.seed)
-    per_path["serve"] = timed("serve", phase_serve, torch, dev, args.seed)
+    per_path["serve"], qwen_counts = timed("serve", phase_serve, torch, dev,
+                                           args.seed)
+    per_path["serve:deepseek"] = timed("serve:deepseek",
+                                       phase_serve_deepseek, torch, dev,
+                                       args.seed, qwen_counts)
+    per_path["serve:mamba2"] = timed("serve:mamba2", phase_serve_mamba2,
+                                     torch, dev, args.seed)
     # launches summed over the three codecs' main paths and the consumer
     # phases
     summary = [{**kernels[k],

@@ -2,8 +2,10 @@
 `repro.dist.context` that the model and serve modules consult.
 
 The port has no meshes yet, so ``current_mesh()`` is always None,
-``constrain`` is the identity and ``weight_gather_info()`` is None.  The
-serve hooks are whole: ``use_kv_reshard_compress`` arms the
+``constrain`` is the identity, ``weight_gather_info()`` is None and the
+MoE all-to-all compression hook (``use_a2a_compress``) never becomes
+active: as in the reference, it acts only under a mesh.  The serve hooks
+are whole: ``use_kv_reshard_compress`` arms the
 prefill->decode handoff wire codec and ``use_kv_evict_codec`` the paged
 pool's eviction codec, each validated when armed and each scoped (the
 previous state returns on exit, also on an exception).
@@ -14,6 +16,7 @@ from contextlib import contextmanager
 from typing import Any, List, Optional
 
 _kv_reshard_stack: List[Optional[str]] = []
+_a2a_compress_stack: List[Optional[str]] = []
 _kv_evict_stack: List[Optional[str]] = []
 
 #: codec a bare ``True`` arms
@@ -64,6 +67,20 @@ def _codec_name(active) -> Optional[str]:
         raise ValueError(f"unknown compression codec {name!r}; "
                          f"registered: {codecs.names()}")
     return name
+
+
+def use_a2a_compress(active):
+    """Arm compressed MoE dispatch/combine resharding (read via
+    ``a2a_compress_active`` inside ``moe_forward``).  `active`: bool or a
+    codec registry name, validated here."""
+    return _pushed(_a2a_compress_stack, _codec_name(active))
+
+
+def a2a_compress_active() -> bool:
+    """True only when armed AND under a mesh (the reference's rule), so
+    never in the port until it has meshes."""
+    return bool(_a2a_compress_stack and _a2a_compress_stack[-1]
+                and current_mesh() is not None)
 
 
 def _kv_hook_name(active) -> Optional[str]:

@@ -16,7 +16,15 @@ Runs on the card unless ``--device cpu`` is given.
         --continuous --requests 8 --max-batch 4 --pool-pages 32 \
         --evict-codec cusz
 
-The weights are random (``--seed``), f32, computed in bf16.
+    # MLA + MoE, and Mamba2 (a prompt is one SSD chunk or a whole number
+    # of them: 16 tokens at --reduced, 128 at full width)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --reduced --device cpu --compressed-kv
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --prompt-len 256 --compressed-kv --disaggregate
+
+The weights are random (``--seed``), f32, computed in bf16.  Archs with
+Mamba layers draw the continuous mode's prompt lengths as whole chunks.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.models import model as M
+from repro_torch.models.ssm import SEG_CHUNKS
 from repro_torch.serve.engine import (LAST_HANDOFF_STATS, LAST_RESHARD_STATS,
                                       ServeConfig, decode_tokens,
                                       encode_handoff, generate, prefill,
@@ -81,6 +90,15 @@ def main(argv=None):
                          "CPU")
     dev = torch.device(args.device)
     cfg = configs.reduced(args.arch) if args.reduced else configs.get(args.arch)
+    chunk = cfg.ssm.chunk if cfg.ssm is not None else 1
+    n_chunks = args.prompt_len // chunk
+    if chunk > 1 and args.prompt_len > chunk and (
+            args.prompt_len % chunk or n_chunks % min(SEG_CHUNKS, n_chunks)):
+        raise SystemExit(
+            f"{cfg.name}: --prompt-len must be at most one SSD chunk "
+            f"({chunk} tokens) or a whole number of them, and above "
+            f"{SEG_CHUNKS} chunks a whole number of {SEG_CHUNKS}-chunk "
+            f"segments")
     gen = torch.Generator(dev).manual_seed(args.seed)
     params = M.init_params(gen, cfg, device=dev)
     rng = np.random.default_rng(args.seed)
@@ -94,11 +112,15 @@ def main(argv=None):
 
     if args.continuous:
         from repro_torch.serve import scheduler as sched_mod
+
+        def length():
+            if chunk == 1 or args.prompt_len < chunk:
+                return int(rng.integers(4, args.prompt_len + 1))
+            return chunk * int(rng.integers(1, min(n_chunks, SEG_CHUNKS) + 1))
+
         reqs = [sched_mod.Request(
             rid=i,
-            prompt=rng.integers(1, cfg.vocab,
-                                size=int(rng.integers(
-                                    4, args.prompt_len + 1))
+            prompt=rng.integers(1, cfg.vocab, size=length()
                                 ).astype(np.int32),
             max_new=int(rng.integers(2, args.new_tokens + 1)),
             arrival=int(rng.integers(0, max(1, args.requests // 2))))

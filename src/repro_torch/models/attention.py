@@ -1,6 +1,6 @@
-"""Attention: GQA/MQA (+qk_norm, +qkv bias), with a flash-style blocked
-implementation for long sequences and a decode path against (optionally
-int8-compressed) KV caches.
+"""Attention: GQA/MQA (+qk_norm, +qkv bias), MLA (deepseek-v2), with a
+flash-style blocked implementation for long sequences and a decode path
+against (optionally int8-compressed) KV caches.
 
 As in the reference, the blocked "flash-scan" is plain tensor code: a
 loop over KV blocks with an online softmax, no attention kernel.  The
@@ -8,8 +8,6 @@ score and probability-times-value products take bf16 operands and keep
 f32 results (the reference's ``preferred_element_type=float32``): the
 operands are upcast to f32 for those products, which is exact, since a
 bf16 x bf16 product is representable in f32.
-
-MLA (deepseek-v2) is the next slice of the port.
 """
 from __future__ import annotations
 
@@ -48,6 +46,26 @@ def init_gqa_params(gen: torch.Generator, cfg: ModelConfig, device=None):
         p["q_norm"] = torch.ones((hd,), device=device)
         p["k_norm"] = torch.ones((hd,), device=device)
     return p
+
+
+def init_mla_params(gen: torch.Generator, cfg: ModelConfig, device=None):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    device = device if device is not None else gen.device
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), device=device),
+        "wq_b": dense_init(gen, (m.q_lora_rank, h,
+                                 m.qk_nope_dim + m.qk_rope_dim),
+                           device=device),
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_dim),
+                            device=device),
+        "wk_b": dense_init(gen, (m.kv_lora_rank, h, m.qk_nope_dim),
+                           device=device),
+        "wv_b": dense_init(gen, (m.kv_lora_rank, h, m.v_head_dim),
+                           device=device),
+        "wo": dense_init(gen, (h, m.v_head_dim, d), in_axis=(0, 1),
+                         device=device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -180,3 +198,77 @@ def gqa_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_k, cache_v,
     o = torch.einsum("bqkgs,bskd->bqkgd", pattn.to(dt).float(), vf.float())
     o = o.reshape(B, 1, cfg.n_heads, cfg.head_dim).to(dt)
     return _out_proj(p, o), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): the latent IS the cache
+# ---------------------------------------------------------------------------
+
+def _mla_q_entry(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
+    """Queries (nope and RoPE'd rope parts) and the cache entry
+    ``[latent, RoPE'd k_rope]`` [B, S, kv_lora + rope] of x [B,S,D]."""
+    m = cfg.mla
+    dt = x.dtype
+    ql = x @ p["wq_a"].to(dt)
+    q = torch.einsum("bsr,rhe->bshe", ql, p["wq_b"].to(dt))
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    kv_a = x @ p["wkv_a"].to(dt)
+    latent, k_rope = kv_a.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, torch.cat([latent, k_rope], dim=-1)
+
+
+def mla_forward(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
+    """Training / prefill.  Returns (out, latent cache [B, S, kv_lora +
+    rope])."""
+    m = cfg.mla
+    dt = x.dtype
+    B, S, _ = x.shape
+    q_nope, q_rope, entry = _mla_q_entry(p, cfg, x, pos)
+    latent, k_rope = entry.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    k_nope = torch.einsum("bsr,rhe->bshe", latent, p["wk_b"].to(dt))
+    v = torch.einsum("bsr,rhe->bshe", latent, p["wv_b"].to(dt))
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, cfg.n_heads,
+                                            m.qk_rope_dim)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope_b], dim=-1)
+    o = _flash_qblocked(qf, kf, v, causal=True)
+    return _out_proj(p, o), entry
+
+
+def mla_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
+               cache_len: Union[int, torch.Tensor], compressed: bool = False):
+    """One-token decode.  x: [B,1,D]; cache: the [B, Smax, kv_lora+rope]
+    latent cache (MLA's whole point: ~576 values per token), or its
+    QuantKV form when `compressed` — the blockwise-int8 codec of the GQA
+    cache, layered on the latent.  `cache_len` is the new token's
+    position: an int or a [B] tensor, one per row.  The cache is written
+    IN PLACE and returned: (out, cache)."""
+    m = cfg.mla
+    dt = x.dtype
+    B = x.shape[0]
+    lens = torch.as_tensor(cache_len, device=x.device).to(torch.long)
+    lens = lens.expand(B) if lens.dim() == 0 else lens
+    q_nope, q_rope, entry = _mla_q_entry(p, cfg, x, lens[:, None])
+    if compressed:
+        KVC.kv_update_block_(cache, entry, lens, seq_axis=1)
+        cache_f = KVC.kv_dequantize(cache, seq_axis=1, dtype=dt)
+    else:
+        cache[torch.arange(B, device=x.device), lens] = entry[:, 0]
+        cache_f = cache
+
+    lat_c = cache_f[..., :m.kv_lora_rank]
+    kr_c = cache_f[..., m.kv_lora_rank:]
+    k_nope = torch.einsum("bsr,rhe->bshe", lat_c, p["wk_b"].to(dt))
+    v = torch.einsum("bsr,rhe->bshe", lat_c, p["wv_b"].to(dt))
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    s = torch.einsum("bqhe,bshe->bqhs", q_nope.float(), k_nope.float())
+    s = s + torch.einsum("bqhe,bse->bqhs", q_rope.float(), kr_c.float())
+    s = s * scale
+    Smax = cache_f.shape[1]
+    valid = torch.arange(Smax, device=x.device)[None, :] <= lens[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhs,bshe->bqhe", pattn.to(dt).float(), v.float())
+    return _out_proj(p, o.to(dt)), cache

@@ -14,9 +14,10 @@ compressed KV cache, split into disaggregation-ready phases:
      the card: the codecs' CUDA kernels) and re-quantize.
   4. **decode** — ``decode_tokens`` runs the one-token step in a loop.
 
-``generate`` composes 1+4.  The port runs on one device: a mesh is the
-distribution slice's work (ROADMAP §1.3) and raises here.  MoE, MLA and
-Mamba/SSM caches are the next slice and raise in the model.
+``generate`` composes 1+4.  GQA K/V and MLA latents cross the handoff
+as per-slab wire containers, Mamba/SSD state as lossless whole tensors.
+The port runs on one device: a mesh is the distribution slice's work
+(ROADMAP §1.3) and raises here.
 
 Sampling: greedy (``temperature=0``) is the reference's, token for token.
 Temperature sampling draws from ``softmax(logits / T)`` with a
@@ -37,6 +38,7 @@ from repro_torch.codecs.base import input_device
 from repro_torch.core import kvcache as KVC
 from repro_torch.dist import context as dist_ctx
 from repro_torch.models import model as M
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 
@@ -87,8 +89,17 @@ def prefill(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
             return KVC.QuantKV(cont.payload["q"], cont.payload["scale"])
         return full
 
-    entries = tuple((extend(k), extend(v)) for k, v in caches)
-    return logits[:, -1, :], M.DecodeCaches(entries), S_total
+    entries = []
+    for kind, c in zip(cfg.pattern, caches):
+        if not kind.startswith("attn"):
+            entries.append(c)        # MambaState carries over directly
+        elif cfg.mla:
+            # the MLA latent cache goes through the same block codec as
+            # GQA K/V: compressed_kv is honored, not ignored
+            entries.append(extend(c))
+        else:
+            entries.append((extend(c[0]), extend(c[1])))
+    return logits[:, -1, :], M.DecodeCaches(tuple(entries)), S_total
 
 
 # ---------------------------------------------------------------------------
@@ -163,9 +174,10 @@ def generate(params, cfg: ModelConfig, prompt, n_new: int,
 
 class KVHandoff(NamedTuple):
     """Everything that crosses the prefill->decode boundary: per pattern
-    entry, a tuple of per-tensor Container tuples (attn K/V as per-seq-slab
-    wire containers).  No decoded f32 rides here."""
-    kinds: Tuple[str, ...]           # per entry: "kv"
+    entry, a tuple of per-tensor Container tuples (attn K/V and MLA
+    latents as per-seq-slab wire containers; Mamba/SSD state as lossless
+    containers).  No decoded f32 rides here."""
+    kinds: Tuple[str, ...]           # per entry: "kv" | "mla" | "state"
     entries: Tuple[Any, ...]
     plen: int
     wire: str
@@ -192,7 +204,6 @@ def encode_handoff(caches: M.DecodeCaches, cfg: ModelConfig,
     each slab is packed to its host storage form — the container
     payloads are the bytes that move.  Updates ``LAST_HANDOFF_STATS``
     with the wire accounting."""
-    M.require_dense(cfg)
     wire = wire or dist_ctx.kv_reshard_codec() or "int8-block"
     item = torch.bfloat16.itemsize
     # reset at call START, not return: back-to-back sessions must never
@@ -204,6 +215,13 @@ def encode_handoff(caches: M.DecodeCaches, cfg: ModelConfig,
          "wire_bytes": 0, "raw_bf16_bytes": 0, "lossless_fallback": 0})
     stats = LAST_HANDOFF_STATS
 
+    def account(parts, raw_bytes):
+        stats["tensors"] += 1
+        stats["containers"] += len(parts)
+        stats["wire_bytes"] += KVC.kv_wire_nbytes(parts)
+        stats["raw_bf16_bytes"] += raw_bytes
+        return parts
+
     def ship(x):
         n = x.q.numel() if isinstance(x, KVC.QuantKV) else x.numel()
         parts = KVC.kv_wire_encode(
@@ -214,14 +232,28 @@ def encode_handoff(caches: M.DecodeCaches, cfg: ModelConfig,
             # re-encoded raw by kv_wire_encode (graceful degradation)
             stats["lossless_fallback"] += sum(
                 1 for p in parts if p.header.codec == "lossless")
-        stats["tensors"] += 1
-        stats["containers"] += len(parts)
-        stats["wire_bytes"] += KVC.kv_wire_nbytes(parts)
-        stats["raw_bf16_bytes"] += n * item
-        return parts
+        return account(parts, n * item)
 
-    entries = tuple((ship(k), ship(v)) for k, v in caches.entries)
-    return KVHandoff(("kv",) * len(entries), entries, int(plen), wire)
+    lossless = codecs.get("lossless")
+
+    def ship_state(x):
+        # recurrent state has no seq axis and stays lossless; its raw
+        # baseline is its actual bytes, not the bf16 K/V equivalent
+        return account((lossless.pack(lossless.encode(x)),),
+                       x.numel() * x.element_size())
+
+    kinds, entries = [], []
+    for kind, c in zip(cfg.pattern, caches.entries):
+        if not kind.startswith("attn"):
+            kinds.append("state")
+            entries.append(tuple(ship_state(x) for x in c))
+        elif cfg.mla:
+            kinds.append("mla")
+            entries.append((ship(c),))
+        else:
+            kinds.append("kv")
+            entries.append((ship(c[0]), ship(c[1])))
+    return KVHandoff(tuple(kinds), tuple(entries), int(plen), wire)
 
 
 def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
@@ -234,7 +266,6 @@ def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
     payload space and placed directly, with **no f32 round trip and no
     re-quantization**.  Any other combination decodes (and, for a
     compressed target, re-quantizes).  Updates ``LAST_RESHARD_STATS``."""
-    M.require_dense(cfg)
     if mesh is not None or dist_ctx.current_mesh() is not None:
         raise NotImplementedError(
             "placing caches on a device mesh is the distribution slice of "
@@ -283,9 +314,15 @@ def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
 
     entries = []
     for kind, entry in zip(handoff.kinds, handoff.entries):
-        if kind != "kv":
-            raise NotImplementedError(
-                f"handoff entry kind {kind!r}: MLA latents and Mamba state "
-                f"are the next slice of the port")
-        entries.append((arrive(entry[0]), arrive(entry[1])))
+        if kind == "kv":
+            entries.append((arrive(entry[0]), arrive(entry[1])))
+        elif kind == "mla":
+            entries.append(arrive(entry[0]))
+        else:                        # "state": lossless whole tensors
+            vals = []
+            for parts in entry:
+                stats["tensors"] += 1
+                stats["decoded"] += 1
+                vals.append(codecs.decode(parts[0], device=dev))
+            entries.append(ssm_mod.MambaState(*vals))
     return M.DecodeCaches(tuple(entries))

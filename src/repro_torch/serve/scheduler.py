@@ -30,8 +30,11 @@ Lifecycle of a request:
 to wave admission (only admit when the batch is empty), which is the
 engine's synchronized-batch behavior on the same pool budget.
 
-Mamba/SSM state (the reference's per-sequence recurrent-state sidecar)
-is the next slice of the port; a hybrid config raises at construction.
+Pool pages carry the attention leaves (GQA K and V, MLA latents); a
+Mamba/SSD layer's recurrent state has no sequence axis, so it parks in a
+per-sequence sidecar (`ContinuousScheduler.states`) across preemption.
+A pure SSM model's pages carry no leaf at all: they still count against
+the pool, as in the reference.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import torch
 
 from repro_torch.core import kvcache as KVC
 from repro_torch.models import model as M
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import engine as E
 from repro_torch.serve.pool import PagedKVPool, PoolExhausted
@@ -95,10 +99,28 @@ def make_batch_step(cfg: ModelConfig, scfg: E.ServeConfig):
 # slot <-> pool page movement (in-place buffer writes; shapes never change)
 # ---------------------------------------------------------------------------
 
-def _attn_leaves(entries) -> List[KVC.QuantKV]:
-    """The K and V buffers of every pattern position, in order (the
-    leaves a pool page carries one slab of each)."""
-    return [leaf for kv in entries for leaf in kv]
+def _leaf_paths(cfg: ModelConfig) -> List[str]:
+    """Per pattern entry: "kv" | "mla" | "state" (pool pages carry the
+    attn leaves; recurrent state is an unpaged per-sequence sidecar)."""
+    return ["mla" if cfg.mla else "kv" if kind.startswith("attn")
+            else "state" for kind in cfg.pattern]
+
+
+def _attn_leaves(cfg: ModelConfig, entries) -> List[KVC.QuantKV]:
+    """The K / V buffers and MLA latents of every pattern position, in
+    order (the leaves a pool page carries one slab of each)."""
+    out = []
+    for kind, e in zip(_leaf_paths(cfg), entries):
+        if kind == "kv":
+            out.extend(e)
+        elif kind == "mla":
+            out.append(e)
+    return out
+
+
+def _state_entries(cfg: ModelConfig, entries) -> List[ssm_mod.MambaState]:
+    return [e for kind, e in zip(_leaf_paths(cfg), entries)
+            if kind == "state"]
 
 
 def _adopt_slot(buf: KVC.QuantKV, page_slabs: List[KVC.QuantKV],
@@ -143,7 +165,6 @@ class ContinuousScheduler:
     def __init__(self, params, cfg: ModelConfig, scfg: E.ServeConfig,
                  schedcfg: SchedulerConfig, *,
                  generator: Optional[torch.Generator] = None):
-        M.require_dense(cfg)
         if not scfg.compressed_kv:
             raise ValueError(
                 "the paged pool stores int8-block pages; build the "
@@ -175,6 +196,10 @@ class ContinuousScheduler:
         self.slots: List[Optional[Dict[str, Any]]] = [None] * B
         self.queue: List[Request] = []
         self.finished: Dict[int, Dict[str, Any]] = {}
+        #: per-sequence recurrent-state sidecar (SSM and hybrid archs):
+        #: MambaState has no seq axis, so it bypasses the pool and parks
+        #: per rid while the sequence is preempted
+        self.states: Dict[int, List[ssm_mod.MambaState]] = {}
         #: preempted-but-not-yet-resumed progress, keyed by rid
         self._suspended: Dict[int, Dict[str, Any]] = {}
         self._admit_counter = 0
@@ -190,19 +215,20 @@ class ContinuousScheduler:
     def _prefill_pages(self, req: Request):
         """Prefill one request (B=1) and slice its caches into pool page
         slabs (copies: a page owns its bytes).  Returns
-        (page_slabs_per_page, first_token, plen)."""
+        (page_slabs_per_page, states, first_token, plen)."""
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32,
                                  device=self.device)[None, :]
         last, caches, plen = E.prefill(self.params, self.cfg, prompt,
                                        self.scfg)
         t0 = int(E.pick_token(last, self.generator, self.scfg)[0])
 
-        leaves = _attn_leaves(caches.entries)
+        leaves = _attn_leaves(self.cfg, caches.entries)
         n_pages = KVC.kv_page_count(plen)
         pages = [tuple(KVC.QuantKV(*(t.clone() for t in KVC.kv_page_slice(
             lv, self.seq_axis, i))) for lv in leaves)
             for i in range(n_pages)]
-        return pages, t0, plen
+        return (pages, _state_entries(self.cfg, caches.entries), t0,
+                plen)
 
     def _reclaim(self, need: int, protect) -> int:
         """Free >= `need` device pages: cold *parked* pages first, then
@@ -251,13 +277,17 @@ class ContinuousScheduler:
         pool pages (content lives in the decode buffers while running;
         the pool holds reservations)."""
         s = self.slots[slot]
-        leaves = _attn_leaves(self.caches.entries)
+        leaves = _attn_leaves(self.cfg, self.caches.entries)
         n_pages = self.pool.n_pages_of(s["rid"])
         per_leaf = [_flush_slot(lv, slot, n_pages, self.seq_axis)
                     for lv in leaves]
         for i in range(n_pages):
             self.pool.write_page(s["rid"], i,
                                  tuple(pl[i] for pl in per_leaf))
+        # copies: the decode buffers go on being written in place
+        self.states[s["rid"]] = [
+            ssm_mod.MambaState(*(t[:, slot:slot + 1].clone() for t in st))
+            for st in _state_entries(self.cfg, self.caches.entries)]
 
     def _admit_into(self, slot: int, req: Request, now: int) -> bool:
         """Try to admit one request into a free slot.  Returns False if
@@ -277,6 +307,7 @@ class ContinuousScheduler:
                 self.queue.insert(0, req)
                 return False
             pages = self.pool.read_pages(req.rid)
+            state = self.states.get(req.rid)
             plen = suspended["plen"]
             generated = suspended["generated"]
             t_next = suspended["next_token"]
@@ -289,7 +320,7 @@ class ContinuousScheduler:
                 if self._reclaim(need, set()) < need \
                         and self.pool.free_pages < n_pages:
                     return False
-            page_slabs, t_next, plen = self._prefill_pages(req)
+            page_slabs, state, t_next, plen = self._prefill_pages(req)
             try:
                 self.pool.register(req.rid)
                 for p in page_slabs:
@@ -301,8 +332,14 @@ class ContinuousScheduler:
             generated = []
             t_submit = now
         # adopt pages into the decode buffers at `slot`
-        for j, lv in enumerate(_attn_leaves(self.caches.entries)):
+        for j, lv in enumerate(_attn_leaves(self.cfg, self.caches.entries)):
             _adopt_slot(lv, [pg[j] for pg in pages], slot, self.seq_axis)
+        # prefill carries the conv tail in the compute dtype while the
+        # batched buffer keeps the init_caches dtype: copy_ casts at adopt
+        for full, one in zip(_state_entries(self.cfg, self.caches.entries),
+                             state or ()):
+            for f, o in zip(full, one):
+                f[:, slot].copy_(o[:, 0])
         self.tokens[slot, 0] = int(t_next)
         self.lens[slot] = plen + len(generated)
         self.slots[slot] = {
@@ -390,6 +427,7 @@ class ContinuousScheduler:
                 "plen": s["plen"], "t_submit": s["t_submit"],
                 "t_finish": now}
             self.pool.release(s["rid"])
+            self.states.pop(s["rid"], None)
             self.slots[slot] = None
             self.lens[slot] = 0
 

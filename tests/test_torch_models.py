@@ -1,4 +1,4 @@
-"""Port parity for the dense model stack (`repro_torch.models`,
+"""Port parity for the model stack (`repro_torch.models`,
 `repro_torch.configs`) against the reference's `repro.models` /
 `repro.configs`, on the CPU:
 
@@ -9,7 +9,11 @@
     compressed) and the per-row in-place cache write;
   * `forward` logits and `decode_step` in f32 and in bf16, and `generate`
     tokens in f32, with the reference's weights carried over by
-    `params_from_numpy`.
+    `params_from_numpy`; for the MoE, MLA, Mamba2 and hybrid archs
+    (moonshot, deepseek, mamba2, jamba) the parameter tree, f32 logits
+    and collected caches, one decode step from the reference's prefill
+    caches (dense and compressed), f32 `generate` tokens and mamba2's
+    bf16 logits (the layers themselves: test_torch_moe_ssm.py).
 
 Tolerances: f32 results agree within atol = rtol = 1e-4 (the two
 packages' matmuls sum in different orders; the logits' gap at these
@@ -49,9 +53,12 @@ from repro_torch.io import checkpoint as TCK
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as TM
+from repro_torch.models import ssm as tssm
 from repro_torch.serve import engine as TE
 
 DENSE = ("qwen3-4b", "qwen2.5-3b")
+MOE_MLA_SSM = ("moonshot-v1-16b-a3b", "deepseek-v2-236b", "mamba2-1.3b",
+               "jamba-1.5-large-398b")
 ATOL = RTOL = 1e-4
 
 
@@ -381,7 +388,7 @@ def test_params_from_numpy_layout_and_checkpoint_paths(ref):
 
 
 @pytest.mark.parametrize("arch", ("qwen3-4b", "qwen2.5-3b", "granite-34b",
-                                  "qwen3-32b"))
+                                  "qwen3-32b") + MOE_MLA_SSM)
 def test_param_shapes_full_size(ref, arch):
     """Full-width shapes without allocating (the meta device)."""
     mine = TM.param_shapes(tconfigs.get(arch))
@@ -463,12 +470,26 @@ def test_decode_step(ref, arch, compressed, dtype):
 
 
 def _caches_to_port(rcaches, device="cpu"):
+    """The reference's DecodeCaches -> the port's: GQA (k, v) pairs, MLA
+    latents and MambaStates, dense or QuantKV, carried as numpy."""
     def one(c):
         if hasattr(c, "q"):
             return TKV.QuantKV(_t(c.q, device), _t(c.scale, device))
+        if hasattr(c, "h"):
+            return tssm.MambaState(_t(c.h, device), _t(c.conv, device))
+        if isinstance(c, tuple):
+            return tuple(one(x) for x in c)
         return _t(c, device)
-    return TM.DecodeCaches(tuple((one(k), one(v))
-                                 for k, v in rcaches.entries))
+    return TM.DecodeCaches(tuple(one(e) for e in rcaches.entries))
+
+
+def _cache_leaves(entries):
+    """Every tensor of a cache tree, in order (QuantKV as q then scale)."""
+    for e in entries:
+        if isinstance(e, tuple):
+            yield from _cache_leaves(e)
+        else:
+            yield e
 
 
 @pytest.mark.parametrize("compressed", (False, True))
@@ -509,16 +530,121 @@ def test_patch_embeds_prepend(ref):
     np.testing.assert_allclose(got.numpy(), _np(want), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("arch", ("moonshot-v1-16b-a3b", "deepseek-v2-236b",
-                                  "mamba2-1.3b", "jamba-1.5-large-398b"))
-def test_moe_mla_ssm_are_the_next_slice(arch):
-    cfg = tconfigs.reduced(arch, 1)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.init_params(None, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.init_caches(cfg, 1, 128, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
+@pytest.mark.parametrize("arch", MOE_MLA_SSM)
+def test_params_from_numpy_moe_mla_ssm(ref, arch):
+    """MoE, MLA and Mamba trees: the reference's leaf names, paths and
+    shapes carry across, and `init_params` draws the same tree."""
+    tcfg, rcfg = _cfgs(ref, arch, 1)
+    rp, npp = _ref_params(ref, rcfg)
+    flat, _ = ref.jax.tree_util.tree_flatten_with_path(rp)
+    theirs = [(TCK._leaf_key(tuple(getattr(k, "key", getattr(k, "idx", k))
+                                   for k in p)), tuple(v.shape))
+              for p, v in flat]
+    mine = TM.params_from_numpy(npp, "cpu")
+    own = TM.init_params(torch.Generator().manual_seed(0), tcfg, "cpu")
+    for tree in (mine, own):
+        assert [(TCK._leaf_key(p), tuple(v.shape))
+                for p, v in TCK._leaves_with_path(tree)] == theirs
+
+
+@pytest.mark.parametrize("arch", MOE_MLA_SSM)
+def test_forward_logits_moe_mla_ssm(ref, arch):
+    """f32 logits and collected caches (GQA K, MLA latent, Mamba state)
+    on the reference's weights."""
+    tcfg, rcfg = _cfgs(ref, arch, 1)
+    _, npp = _ref_params(ref, rcfg, seed=12)
+    rp = ref.jax.tree.map(ref.jnp.asarray, npp)
+    tokens = np.random.default_rng(12).integers(0, tcfg.vocab, (2, 32)
+                                                ).astype(np.int32)
+    got, caches = TM.forward(TM.params_from_numpy(npp, "cpu"), tcfg,
+                             _t(tokens), compute_dtype=torch.float32,
+                             collect_caches=True)
+    want, rcaches = ref.M.forward(rp, rcfg, ref.jnp.asarray(tokens),
+                                  compute_dtype=ref.jnp.float32,
+                                  collect_caches=True)
+    _assert_logits_close(got.numpy(), _np(want), "float32")
+    mine = list(_cache_leaves(caches))
+    theirs = ref.jax.tree.leaves(rcaches)
+    assert len(mine) == len(theirs)
+    for a, b in zip(mine, theirs):
+        assert tuple(a.shape) == tuple(b.shape)
+        np.testing.assert_allclose(_f(a), _np(b).astype(np.float32),
+                                   atol=ATOL, rtol=RTOL)
+
+
+def test_forward_logits_mamba2_bf16(ref):
+    """bf16 without routing (no MoE): the stated bf16 bound, and 90% of
+    the argmaxes agree."""
+    tcfg, rcfg = _cfgs(ref, "mamba2-1.3b")
+    _, npp = _ref_params(ref, rcfg, seed=13)
+    rp = ref.jax.tree.map(ref.jnp.asarray, npp)
+    tokens = np.random.default_rng(13).integers(0, tcfg.vocab, (2, 64)
+                                                ).astype(np.int32)
+    got, _ = TM.forward(TM.params_from_numpy(npp, "cpu"), tcfg, _t(tokens))
+    want = _np(ref.M.forward(rp, rcfg, ref.jnp.asarray(tokens))[0])
+    _assert_logits_close(got.numpy(), want, "bfloat16")
+    assert (got.numpy().argmax(-1) == want.argmax(-1)).mean() >= 0.9
+
+
+@pytest.mark.parametrize("compressed", (False, True))
+@pytest.mark.parametrize("arch", MOE_MLA_SSM)
+def test_decode_step_moe_mla_ssm(ref, arch, compressed):
+    """One f32 step from the reference's prefill caches: logits, and the
+    caches it writes (latents and GQA K dequantized within a scale when
+    compressed; Mamba states within ATOL / RTOL)."""
+    tcfg, rcfg = _cfgs(ref, arch, 1)
+    _, npp = _ref_params(ref, rcfg, seed=14)
+    rp = ref.jax.tree.map(ref.jnp.asarray, npp)
+    rscfg = ref.E.ServeConfig(s_max=256, compressed_kv=compressed,
+                              compute_dtype=ref.jnp.float32)
+    prompt = np.random.default_rng(14).integers(0, tcfg.vocab, (2, 11)
+                                                ).astype(np.int32)
+    _, rcaches, plen = ref.E.prefill(rp, rcfg, ref.jnp.asarray(prompt),
+                                     rscfg)
+    caches = _caches_to_port(rcaches)
+    token = np.array([[3], [77]], np.int32)
+    got, caches = TM.decode_step(TM.params_from_numpy(npp, "cpu"), tcfg,
+                                 _t(token), caches, plen,
+                                 compute_dtype=torch.float32,
+                                 compressed_kv=compressed)
+    want, rcaches = ref.M.decode_step(rp, rcfg, ref.jnp.asarray(token),
+                                      rcaches, ref.jnp.int32(plen),
+                                      compute_dtype=ref.jnp.float32,
+                                      compressed_kv=compressed)
+    _assert_logits_close(got.numpy(), _np(want), "float32")
+    for mine, theirs in zip(caches.entries, rcaches.entries):
+        if isinstance(mine, tssm.MambaState):
+            pairs = [(mine.h, theirs.h), (mine.conv, theirs.conv)]
+        elif isinstance(mine, (TKV.QuantKV, torch.Tensor)):     # MLA
+            pairs = [(mine, theirs)]
+        else:                                                   # (k, v)
+            pairs = list(zip(mine, theirs))
+        for a, b in pairs:
+            atol = ATOL
+            if isinstance(a, TKV.QuantKV):
+                atol += float(np.asarray(b.scale).max())
+                a = TKV.kv_dequantize(a, 2, torch.float32)
+                b = ref.KV.kv_dequantize(b, 2, ref.jnp.float32)
+            np.testing.assert_allclose(_f(a), _np(b).astype(np.float32),
+                                       atol=atol, rtol=RTOL)
+
+
+@pytest.mark.parametrize("compressed", (False, True))
+@pytest.mark.parametrize("arch", MOE_MLA_SSM)
+def test_generate_tokens_f32_moe_mla_ssm(ref, arch, compressed):
+    tcfg, rcfg = _cfgs(ref, arch, 1)
+    _, npp = _ref_params(ref, rcfg, seed=15)
+    rp = ref.jax.tree.map(ref.jnp.asarray, npp)
+    prompt = np.random.default_rng(15).integers(0, tcfg.vocab, (2, 13)
+                                                ).astype(np.int32)
+    scfg = TE.ServeConfig(s_max=256, compressed_kv=compressed,
+                          compute_dtype=torch.float32)
+    rscfg = ref.E.ServeConfig(s_max=256, compressed_kv=compressed,
+                              compute_dtype=ref.jnp.float32)
+    got = TE.generate(TM.params_from_numpy(npp, "cpu"), tcfg, _t(prompt), 6,
+                      scfg)
+    want = ref.E.generate(rp, rcfg, ref.jnp.asarray(prompt), 6, rscfg)
+    np.testing.assert_array_equal(got.numpy(), _np(want).astype(np.int32))
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
@@ -596,3 +722,37 @@ def test_forward_and_generate_on_card(cuda_dev, ref, arch, dtype):
             rtoks = ref.E.generate(rp, rcfg, ref.jnp.asarray(tokens), 6,
                                    rscfg)
             np.testing.assert_array_equal(toks.cpu().numpy(), _np(rtoks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_MLA_SSM)
+def test_moe_mla_ssm_on_card(cuda_dev, ref, arch):
+    """MoE, MLA and Mamba models on the card against the reference (JAX
+    on the CPU): f32 logits within ATOL / RTOL and identical greedy
+    tokens from `generate`, dense and compressed; the bf16 bound for the
+    model without routing (mamba2: MoE archs hold bf16 at the layer, on
+    the rows whose experts agree, in test_torch_moe_ssm.py)."""
+    tcfg, rcfg = _cfgs(ref, arch, 1)
+    _, npp = _ref_params(ref, rcfg, seed=16)
+    rp = ref.jax.tree.map(ref.jnp.asarray, npp)
+    card = TM.params_from_numpy(npp, cuda_dev)
+    tokens = np.random.default_rng(16).integers(0, tcfg.vocab, (2, 13)
+                                                ).astype(np.int32)
+    got, _ = TM.forward(card, tcfg, _t(tokens, cuda_dev),
+                        compute_dtype=torch.float32)
+    want, _ = ref.M.forward(rp, rcfg, ref.jnp.asarray(tokens),
+                            compute_dtype=ref.jnp.float32)
+    assert got.is_cuda
+    _assert_logits_close(_f(got), _np(want), "float32")
+    if arch == "mamba2-1.3b":
+        got, _ = TM.forward(card, tcfg, _t(tokens, cuda_dev))
+        want, _ = ref.M.forward(rp, rcfg, ref.jnp.asarray(tokens))
+        _assert_logits_close(_f(got), _np(want), "bfloat16")
+    for compressed in (False, True):
+        scfg = TE.ServeConfig(s_max=256, compressed_kv=compressed,
+                              compute_dtype=torch.float32)
+        rscfg = ref.E.ServeConfig(s_max=256, compressed_kv=compressed,
+                                  compute_dtype=ref.jnp.float32)
+        toks = TE.generate(card, tcfg, _t(tokens, cuda_dev), 6, scfg)
+        rtoks = ref.E.generate(rp, rcfg, ref.jnp.asarray(tokens), 6, rscfg)
+        np.testing.assert_array_equal(toks.cpu().numpy(), _np(rtoks))

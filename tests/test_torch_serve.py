@@ -16,7 +16,13 @@ reference's `repro.serve` / `repro.dist.context`, on the CPU:
     / restored counts equal the reference's on a tight pool with cusz
     eviction; the int8-block tight-pool run equals the big-pool run;
     `run_static` and "pool too small" behave as in the reference;
-  * the `launch.serve` CLI at ``--reduced --device cpu``.
+  * MLA latents and Mamba state (deepseek, mamba2, jamba): the "mla"
+    and "state" handoff kinds byte-identical and resharding across the
+    packages, disaggregated tokens, 4-D latent pages and leafless pages
+    in the pool, and `run_continuous` counts and tokens on a tight pool
+    with the state sidecar;
+  * the `launch.serve` CLI at ``--reduced --device cpu``, every arch
+    family.
 
 Greedy tokens are compared exactly (f32 compute; the model's logits agree
 within 1e-4, see test_torch_models.py).  Containers and QuantKV caches
@@ -47,6 +53,7 @@ from repro_torch.core import kvcache as TKV
 from repro_torch.dist import context as tctx
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import model as TM
+from repro_torch.models import ssm as tssm
 from repro_torch.serve import engine as TE
 from repro_torch.serve import pool as TP
 from repro_torch.serve import scheduler as TS
@@ -155,12 +162,27 @@ def _handoff_to_ref(ref, h):
 
 
 def _caches_to_port(ref, rcaches, device="cpu"):
+    """The reference's DecodeCaches -> the port's: GQA (k, v) pairs, MLA
+    latents and MambaStates, dense or QuantKV."""
     def one(c):
         if isinstance(c, ref.KV.QuantKV):
             return TKV.QuantKV(_t(c.q, device), _t(c.scale, device))
+        if hasattr(c, "h"):
+            return tssm.MambaState(_t(c.h, device), _t(c.conv, device))
+        if isinstance(c, tuple):
+            return tuple(one(x) for x in c)
         return _t(c, device)
-    return TM.DecodeCaches(tuple((one(k), one(v))
-                                 for k, v in rcaches.entries))
+    return TM.DecodeCaches(tuple(one(e) for e in rcaches.entries))
+
+
+def _cache_arrays(entries):
+    """Every array of a cache tree in order (QuantKV: q, then scale;
+    MambaState: h, then conv)."""
+    for e in entries:
+        if isinstance(e, tuple):
+            yield from _cache_arrays(e)
+        else:
+            yield e
 
 
 def _same_parts(ref, mine, theirs):
@@ -176,13 +198,12 @@ def _same_parts(ref, mine, theirs):
 
 
 def _same_caches(mine, theirs):
-    for (tk, tv), (rk, rv) in zip(mine.entries, theirs.entries):
-        for a, b in ((tk, rk), (tv, rv)):
-            if isinstance(a, TKV.QuantKV):
-                np.testing.assert_array_equal(_bits(a.q), _bits(b.q))
-                np.testing.assert_array_equal(_bits(a.scale), _bits(b.scale))
-            else:
-                np.testing.assert_array_equal(_bits(a), _bits(b))
+    """Two packages' caches, bit for bit, whatever their entries."""
+    a, b = list(_cache_arrays(mine.entries)), list(_cache_arrays(
+        theirs.entries))
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
 
 
 # ---------------------------------------------------------------------------
@@ -620,9 +641,6 @@ def test_scheduler_pool_too_small_and_config_checks(ref, model):
         TS.ContinuousScheduler(model.tp, model.tcfg,
                                TE.ServeConfig(s_max=200, compressed_kv=True),
                                TS.SchedulerConfig())
-    moe = tconfigs.reduced("moonshot-v1-16b-a3b", 1)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TS.ContinuousScheduler(model.tp, moe, scfg, TS.SchedulerConfig())
 
 
 def test_adopt_flush_slot_round_trip():
@@ -644,6 +662,220 @@ def test_adopt_flush_slot_round_trip():
 
 
 # ---------------------------------------------------------------------------
+# MLA latents, Mamba state: the "mla" and "state" handoff kinds, latent and
+# leafless pool pages, the scheduler's state sidecar
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ("deepseek-v2-236b", "mamba2-1.3b", "jamba-1.5-large-398b")
+
+
+@pytest.fixture(scope="module")
+def arch_models(ref):
+    """Reduced MLA+MoE, Mamba2 and hybrid models, one period each, with
+    the reference's weights in both packages (f32 compute), and each
+    one's reference prefill of 2 x 144 tokens (two SEQ_BLOCKs, the second
+    partial; 9 SSD chunks of 16) on compressed caches."""
+    prompt = np.random.default_rng(20).integers(1, 200, (2, 144)
+                                                ).astype(np.int32)
+    out = {}
+    for arch in NEW_ARCHS:
+        m = _Model(ref, arch)
+        _, rscfg = m.scfgs(ref)
+        last, caches, plen = ref.E.prefill(m.rp, m.rcfg,
+                                           ref.jnp.asarray(prompt), rscfg)
+        out[arch] = (m, prompt, (np.asarray(last), caches, plen))
+    return out
+
+
+@pytest.mark.parametrize("wire", ("int8-block", "cusz"))
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_handoff_mla_and_state_kinds(ref, arch_models, arch, wire):
+    """On the reference's prefill caches: the same kinds, byte-identical
+    containers (latents on the wire codec, Mamba h and conv lossless)
+    and the same wire accounting; each package's reshard of the other's
+    handoff gives the same cache bits (int8-block: the prefill's own)."""
+    m, _, (_, rcaches, plen) = arch_models[arch]
+    scfg, rscfg = m.scfgs(ref)
+    mine = TE.encode_handoff(_caches_to_port(ref, rcaches), m.tcfg, scfg,
+                             plen=plen, wire=wire)
+    mine_stats = dict(TE.LAST_HANDOFF_STATS)
+    theirs = ref.E.encode_handoff(rcaches, m.rcfg, rscfg, plen=plen,
+                                  wire=wire)
+    assert mine.kinds == theirs.kinds
+    assert set(mine.kinds) == {"mla"} if arch.startswith("deepseek") \
+        else "state" in mine.kinds
+    for me, th in zip(mine.entries, theirs.entries):
+        for a, b in zip(me, th):
+            _same_parts(ref, a, b)
+    assert mine_stats == dict(ref.E.LAST_HANDOFF_STATS)
+    got = TE.reshard_caches(_handoff_to_port(ref, theirs), m.tcfg, scfg,
+                            device="cpu")
+    got_stats = dict(TE.LAST_RESHARD_STATS)
+    want = ref.E.reshard_caches(_handoff_to_ref(ref, mine), m.rcfg, rscfg)
+    assert got_stats == dict(ref.E.LAST_RESHARD_STATS)
+    _same_caches(got, want)
+    if wire == "int8-block":
+        _same_caches(got, rcaches)             # adopted, state lossless
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_disaggregated_tokens_new_archs(ref, arch_models, arch):
+    """The port's own prefill -> cusz handoff -> reshard -> decode gives
+    the reference's f32 greedy tokens from the reference's handoff."""
+    m, prompt, (last, rcaches, plen) = arch_models[arch]
+    scfg, rscfg = m.scfgs(ref)
+    rh = ref.E.encode_handoff(rcaches, m.rcfg, rscfg, plen=plen, wire="cusz")
+    want = ref.E.decode_tokens(m.rp, m.rcfg, rscfg, ref.jnp.asarray(last),
+                               ref.E.reshard_caches(rh, m.rcfg, rscfg),
+                               rh.plen, 5)
+    tlast, tcaches, tplen = TE.prefill(m.tp, m.tcfg, _t(prompt), scfg)
+    th = TE.encode_handoff(tcaches, m.tcfg, scfg, plen=tplen, wire="cusz")
+    got = TE.decode_tokens(m.tp, m.tcfg, scfg, tlast,
+                           TE.reshard_caches(th, m.tcfg, scfg,
+                                             device="cpu"), th.plen, 5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("codec", ("int8-block", "cusz"))
+def test_pool_latent_pages_match_reference(ref, codec):
+    """4-D MLA latent slabs ([n_periods, 1, 128, R]) through each
+    package's pool: byte-identical eviction containers, identical
+    restored bits."""
+    x = np.random.default_rng(21).standard_normal(
+        (2, 1, 2 * TKV.SEQ_BLOCK, 40)).astype(np.float32)
+    rq = ref.KV.kv_quantize(ref.jnp.asarray(x), SEQ_AXIS)
+    tq = TKV.QuantKV(_t(rq.q), _t(rq.scale))
+    pools = (TP.PagedKVPool(2, evict_codec=codec, source_dtype=torch.float32,
+                            device="cpu"),
+             ref.P.PagedKVPool(2, evict_codec=codec,
+                               source_dtype=ref.jnp.float32))
+    for pool, q, kv in ((pools[0], tq, TKV), (pools[1], rq, ref.KV)):
+        pool.register("s")
+        for i in range(2):
+            pool.append_page("s", (kv.kv_page_slice(q, SEQ_AXIS, i),))
+        assert tuple(pool.read_pages("s")[0][0].q.shape) == (2, 1, 128, 40)
+        assert pool.evict_sequence("s") == 2
+    for pm, pr in zip(pools[0]._tables["s"], pools[1]._tables["s"]):
+        _same_parts(ref, pm.host[0], pr.host[0])
+    assert pools[0].ensure_resident("s") == pools[1].ensure_resident("s") == 2
+    for a, b in zip(pools[0].read_pages("s"), pools[1].read_pages("s")):
+        np.testing.assert_array_equal(_bits(a[0].q), _bits(b[0].q))
+        np.testing.assert_array_equal(_bits(a[0].scale), _bits(b[0].scale))
+
+
+def test_pool_leafless_pages_count():
+    """A pure SSM model's pages hold no leaf: they still take pool pages,
+    evict (to host pages of no bytes) and restore (to empty slabs), and
+    the page accounting holds."""
+    pool = TP.PagedKVPool(3, evict_codec="cusz", device="cpu")
+    for sid in ("a", "b"):
+        pool.register(sid)
+        pool.append_page(sid, ())
+    pool.append_page("a", ())
+    with pytest.raises(TP.PoolExhausted):
+        pool.append_page("b", ())
+    assert pool.evict_cold(2, exclude={"b"}) == 2
+    st = pool.stats()
+    assert st["host_pages"] == 2 and st["host_bytes"] == 0
+    assert pool.free_pages == 2 and pool.device_pids() == {
+        p.pid for p in pool._tables["b"]}
+    assert pool.ensure_resident("a") == 2
+    assert pool.read_pages("a") == [(), ()]
+    assert pool.stats()["restored_pages"] == 2 and pool.free_pages == 0
+    assert len(pool.device_pids()) == pool.used_pages == 3
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_scheduler_tight_pool_new_archs_match_reference(ref, arch):
+    """3 live sequences on a 2-page pool with cusz eviction: the same
+    steps, preemptions, evicted / restored pages and tokens as the
+    reference.  Mamba states cross each preemption through the sidecar
+    (mamba2's pages hold no leaf, jamba's the attention position's K/V);
+    prompts of 6-11 tokens are shorter than one SSD chunk."""
+    m = _Model(ref, arch)
+    (mine, ms), (theirs, rs) = _run_both(
+        ref, m, "run_continuous",
+        dict(max_batch=3, pool_pages=2, evict_codec="cusz"), seed=4,
+        plen_lo=6, plen_hi=12, new_lo=5, new_hi=8)
+    assert ms.preemptions == rs.preemptions > 0
+    st, rst = ms.pool.stats(), rs.pool.stats()
+    for k in ("evicted_pages", "restored_pages", "peak_used"):
+        assert st[k] == rst[k], k
+    assert ms.n_steps == rs.n_steps
+    for rid in mine:
+        assert mine[rid]["tokens"] == theirs[rid]["tokens"], rid
+    assert not ms.states and ms.pool.used_pages == 0
+
+
+def test_scheduler_ssm_sidecar_tight_equals_big_pool(ref):
+    """mamba2 with int8-block eviction on a 2-page pool (preempting, the
+    state parked in the sidecar) against a 16-page pool: equal tokens;
+    prompts of 16 and 32 tokens (one and two SSD chunks)."""
+    m = _Model(ref, "mamba2-1.3b")
+    scfg, _ = m.scfgs(ref)
+    rng = np.random.default_rng(22)
+    reqs = [TS.Request(rid=i, prompt=rng.integers(1, 100, size=n
+                                                  ).astype(np.int32),
+                       max_new=6) for i, n in enumerate((16, 32, 16))]
+    runs = [TS.run_continuous(m.tp, m.tcfg, scfg,
+                              TS.SchedulerConfig(max_batch=3, pool_pages=n,
+                                                 evict_codec="int8-block"),
+                              reqs) for n in (2, 16)]
+    (tiny, st), (big, sb) = runs
+    assert st.preemptions > 0 and sb.preemptions == 0
+    for rid in tiny:
+        assert tiny[rid]["tokens"] == big[rid]["tokens"], rid
+
+
+def test_scheduler_static_new_arch_matches_reference(ref):
+    (mine, ms), (theirs, rs) = _run_both(
+        ref, _Model(ref, "jamba-1.5-large-398b"), "run_static",
+        dict(max_batch=2, pool_pages=12), seed=2, arrivals=[0, 0, 2])
+    assert ms.n_steps == rs.n_steps
+    for rid in mine:
+        assert mine[rid]["tokens"] == theirs[rid]["tokens"], rid
+
+
+def test_chip_smoke_schedules_rehearsed():
+    """The continuous runs of `chip_smoke.py` rehearsed on the CPU at
+    reduced width: with EOS off the schedule (steps, preemptions, pages
+    evicted and restored) depends only on the requests' lengths and the
+    pool, not on the model or the eviction codec, so the card's runs at
+    full width must give these counts (`SERVE_COUNTS` for qwen3-4b and
+    deepseek-v2-236b at the default seed, `MAMBA2_COUNTS`)."""
+    import chip_smoke as cs
+
+    scfg = TE.ServeConfig(s_max=cs.SERVE["s_max"], compressed_kv=True,
+                          compute_dtype=torch.float32)
+    for arch, runs, want in (
+            ("qwen2.5-3b", (("cusz", cs.SERVE["cusz_requests"],
+                             cs.SERVE["tight_pages"]),
+                            ("int8-block", None, cs.SERVE["tight_pages"]),
+                            ("int8-block-big", None, cs.SERVE["big_pages"])),
+             cs.SERVE_COUNTS),
+            ("mamba2-1.3b", (("int8-block", None, cs.MAMBA2["tight_pages"]),
+                             ("int8-block-big", None,
+                              cs.MAMBA2["big_pages"])), cs.MAMBA2_COUNTS)):
+        cfg = tconfigs.reduced(arch, 1)
+        params = TM.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        if arch == "mamba2-1.3b":
+            reqs = [TS.Request(rid=i, prompt=np.ones(n, np.int32),
+                               max_new=cs.MAMBA2["max_new"])
+                    for i, n in enumerate(cs.MAMBA2["prompts"])]
+            max_batch = cs.MAMBA2["max_batch"]
+        else:
+            reqs = cs.serve_requests(np, TS.Request, cfg.vocab, 0)
+            max_batch = cs.SERVE["max_batch"]
+        for label, n_req, pages in runs:
+            _, sched = TS.run_continuous(
+                params, cfg, scfg,
+                TS.SchedulerConfig(max_batch=max_batch, pool_pages=pages,
+                                   evict_codec="int8-block"),
+                reqs[:n_req])
+            assert cs.schedule_counts(sched) == want[label], (arch, label)
+
+
+# ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------
 
@@ -661,6 +893,26 @@ def test_launch_serve_cli_on_cpu(capsys, extra):
         assert "handoff wire=cusz" in out and "decoded=2" in out
     if "--continuous" in extra:
         assert "requests=4" in out and "evict_codec=cusz" in out
+
+
+@pytest.mark.parametrize("arch,extra", (
+    ("deepseek-v2-236b", ["--compressed-kv", "--disaggregate",
+                          "--wire-codec", "fz"]),
+    ("moonshot-v1-16b-a3b", ["--compressed-kv"]),
+    ("mamba2-1.3b", ["--prompt-len", "48", "--compressed-kv",
+                     "--disaggregate"]),
+    ("jamba-1.5-large-398b", ["--continuous", "--requests", "3",
+                              "--pool-pages", "3", "--prompt-len", "144"])))
+def test_launch_serve_cli_new_archs(capsys, arch, extra):
+    tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu",
+                  "--batch", "2", "--new-tokens", "3"] + extra)
+    out = capsys.readouterr().out
+    assert f"arch={arch} device=cpu" in out
+    if "--disaggregate" in extra:
+        assert "handoff wire=" in out
+    with pytest.raises(SystemExit, match="SSD chunk"):
+        tlaunch.main(["--arch", "mamba2-1.3b", "--reduced", "--device",
+                      "cpu", "--prompt-len", "40"])
 
 
 # ---------------------------------------------------------------------------
@@ -730,5 +982,56 @@ def test_scheduler_on_card(cuda_dev, ref, model):
         assert st[k] == rst[k], k
     assert ms.n_steps == rs.n_steps
     assert mine.keys() == theirs.keys()
+    for rid in mine:
+        assert mine[rid]["tokens"] == theirs[rid]["tokens"], rid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ("cusz", "fz"))
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_archs_disaggregated_on_card(cuda_dev, ref, arch_models, arch,
+                                         wire):
+    """MLA latents (through the codec kernels on the card) and Mamba
+    state (lossless) against the reference: the reference's prefill
+    caches moved to the card encode to byte-identical containers; the
+    card's reshard of the reference's handoff gives its cache bits and,
+    decoded on the card, its f32 greedy tokens."""
+    m, _, (last, rcaches, plen) = arch_models[arch]
+    scfg, rscfg = m.scfgs(ref)
+    card = _on_card(m, cuda_dev)
+    mine = TE.encode_handoff(_caches_to_port(ref, rcaches, cuda_dev),
+                             card.tcfg, scfg, plen=plen, wire=wire)
+    rh = ref.E.encode_handoff(rcaches, m.rcfg, rscfg, plen=plen, wire=wire)
+    for me, th in zip(mine.entries, rh.entries):
+        for a, b in zip(me, th):
+            _same_parts(ref, a, b)
+    got = TE.reshard_caches(_handoff_to_port(ref, rh), card.tcfg, scfg,
+                            device=cuda_dev)
+    want = ref.E.reshard_caches(rh, m.rcfg, rscfg)
+    assert next(_cache_arrays(got.entries)).is_cuda
+    _same_caches(got, want)
+    rtoks = np.asarray(ref.E.decode_tokens(
+        m.rp, m.rcfg, rscfg, ref.jnp.asarray(last), want, rh.plen, 5))
+    toks = TE.decode_tokens(card.tp, card.tcfg, scfg, _t(last, cuda_dev),
+                            got, plen, 5)
+    np.testing.assert_array_equal(toks.cpu().numpy(), rtoks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_archs_scheduler_on_card(cuda_dev, ref, arch):
+    """The continuous scheduler on the card with cusz eviction on a tight
+    pool against the reference: the same steps, preemptions, evicted /
+    restored pages and tokens."""
+    (mine, ms), (theirs, rs) = _run_both(
+        ref, _on_card(_Model(ref, arch), cuda_dev), "run_continuous",
+        dict(max_batch=3, pool_pages=2, evict_codec="cusz"), seed=4,
+        plen_lo=6, plen_hi=12, new_lo=5, new_hi=8)
+    assert ms.pool.device.type == "cuda"
+    assert ms.preemptions == rs.preemptions > 0
+    st, rst = ms.pool.stats(), rs.pool.stats()
+    for k in ("evicted_pages", "restored_pages", "peak_used"):
+        assert st[k] == rst[k], k
+    assert ms.n_steps == rs.n_steps
     for rid in mine:
         assert mine[rid]["tokens"] == theirs[rid]["tokens"], rid
