@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card: its
 three codecs (cusz, cusz-i, fz) with every CUDA kernel of their paths
-held against its plain PyTorch version, their consumers, and the serving
+held against its plain PyTorch version, their consumers, the serving
 path of three model families: dense (qwen3-4b), MLA + MoE
-(deepseek-v2-236b, 2 layers) and Mamba2/SSD (mamba2-1.3b).
+(deepseek-v2-236b, 2 layers) and Mamba2/SSD (mamba2-1.3b), and the
+training path (qwen3-4b) with its cusz restart files.
 
 Run from the repository root, with no arguments:
 
@@ -86,11 +87,34 @@ Phases, each printing one JSON line:
             512 tokens with the state sidecar, on an 8-page pool that
             preempts against a 32-page one: equal tokens, the rehearsed
             schedule
+  train:step  `Trainer.run` at qwen3-4b's published width and depth (36
+            layers, 4.02 B f32 master weights from --seed, AdamW with f32
+            moments, bf16 compute): 4 steps of 4 x 512 bigram tokens;
+            seconds per step, tokens/s, losses (the last below the
+            first), peak memory, the NaN guard's host snapshots after
+            steps 0 and 2 (the first allocates and page-locks the
+            buffers, the second reuses them) with the host's peak
+            resident memory, a device-only profiler window over the
+            last step
+  train:compress  qwen3-4b's width, depth cut to 2 layers: 3 steps of
+            `make_train_step` with int8 pod-compressed grads (2 pods, the
+            batch as [2, 2, 512]), the int8 weight STE, 2 microbatches
+            and int8 AdamW moments; the pod mean of layers[0].mlp.w_up's
+            grad within amax/(127//2)/2, `max_weight_error` within 1/254
+  train:restart  the same cut, default step: run A (4 steps) saves
+            after steps 1 and 3 (cusz params at eb_valrel 1e-3, moments
+            lossless) through the AsyncWriter under one injected
+            transient write failure; B resumes at step 4 and runs to 6;
+            C runs 6 steps without checkpoints.  A's losses within 1e-6
+            of C's, B's within 1e-2; the restored state within its bound
+            (lossless leaves exact, AdamWState and count as written);
+            one cusz leaf's container made again by the plain versions,
+            byte for byte
 
-Each of the consumer and serve phases is driven with the launch counts
-set to 0 just before it (each serve phase before itself) and read just
-after it; "timing" lines give each phase's seconds; `--seed` sets the
-data of the consumer and serve phases.
+Each of the consumer, serve and train phases is driven with the launch
+counts set to 0 just before it (each serve phase before itself) and
+read just after it; "timing" lines give each phase's seconds; `--seed`
+sets the data of the consumer, serve and train phases.
 
 then the `{"kernels": [...]}` summary and, last, the device line.  Any
 failed check raises, so the script exits nonzero; without a CUDA device it
@@ -102,6 +126,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import resource
 import subprocess
 import sys
 import tempfile
@@ -1737,6 +1762,402 @@ def phase_serve_mamba2(torch, dev, seed: int) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# train:step at qwen3-4b's published width and depth; train:compress and
+# train:restart at its width with the depth cut to TRAIN_CUT_LAYERS
+TRAIN = dict(batch=4, seq=512, steps=4, compress_steps=3, npods=2,
+             restart_steps=(4, 6), checkpoint_every=2, eb_valrel=1e-3,
+             snapshot_every=2)
+TRAIN_CUT_LAYERS = 2
+# H100 SXM data sheet: dense bf16 tensor-core peak
+BF16_FLOP_PER_S = 989e12
+
+
+def _train_cfg(layers=None):
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get("qwen3-4b")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _state_bytes(torch, tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+class _Spy:
+    """Wraps `owner.name` for the extent of a `with`: each returning
+    call's seconds and result (and, through `on_call`, whatever the
+    caller wants kept from its arguments)."""
+
+    def __init__(self, owner, name: str, on_call=None):
+        self.owner, self.name, self.on_call = owner, name, on_call
+        self.seconds: list = []
+        self.results: list = []
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+
+        def wrapped(*args, **kwargs):
+            if self.on_call is not None:
+                self.on_call(*args, **kwargs)
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            self.results.append(out)
+            return out
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def profile_train_step(torch, step_fn, params, opt, toks) -> tuple:
+    """One train step under a device-only `torch.profiler` window: the
+    device's busy time (sum of kernel times) against the host clock, and
+    the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_call = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt, toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy = sum(r[1] for r in rows) / 1e6
+    rows.sort(key=lambda r: -r[1])
+    return out, {"wall_s": wall, "device_busy_s": busy,
+                 "device_busy_share": busy / wall if rows else None,
+                 "kernels_per_step": sum(r[2] for r in rows),
+                 "profiler_s": time.perf_counter() - t_call,
+                 "top": [{"name": k[:80], "ms": t / 1e3, "calls": c}
+                         for k, t, c in rows[:8]]}
+
+
+def phase_train_step(torch, dev, seed: int) -> dict:
+    """`Trainer.run` at qwen3-4b's published width and depth: 36 layers,
+    4.02 B f32 master weights from a generator seeded by `seed`, AdamW
+    with f32 moments, 4 steps of 4 x 512 tokens from the bigram stream,
+    bf16 compute.  The last step runs under a device-only profiler."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg, sizes = _train_cfg(), TRAIN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lcfg = TR.LoopConfig(steps=sizes["steps"], batch=sizes["batch"],
+                         seq=sizes["seq"], seed=seed, checkpoint_dir=None)
+    tr = TR.Trainer(cfg, TrainConfig(), lcfg, device=dev)
+    step_fn, calls, prof = tr.step_fn, [], {}
+
+    def step(params, opt, toks):
+        calls.append(len(calls))
+        if len(calls) < sizes["steps"]:
+            return step_fn(params, opt, toks)
+        out, prof["last_step"] = profile_train_step(torch, step_fn, params,
+                                                    opt, toks)
+        return out
+    tr.step_fn = step
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    # snapshots after steps 0 and 2: the second reuses the first's buffers
+    snap_bytes, every = [], TR.SNAPSHOT_EVERY
+    TR.SNAPSHOT_EVERY = sizes["snapshot_every"]
+    try:
+        with _Spy(TR.HostSnapshot, "take", lambda self, state:
+                  snap_bytes.append(_state_bytes(torch, state))) as snap:
+            hist = tr.run()
+    finally:
+        TR.SNAPSHOT_EVERY = every
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    n_params = cfg.param_count()
+    tokens = sizes["batch"] * sizes["seq"]
+    # steady steps: not the first (allocator and library warm-up), not the
+    # profiled last
+    steady = [h["dt"] for h in hist[1:-1]]
+    step_s = sum(steady) / len(steady)
+    flop = 6 * n_params * tokens
+    losses = [h["loss"] for h in hist]
+    rec = {"phase": "train:step", "arch": cfg.name, "layers": cfg.n_layers,
+           "params": n_params, "batch": sizes["batch"], "seq": sizes["seq"],
+           "steps": len(hist), "losses": losses,
+           "step_s": [h["dt"] for h in hist], "steady_step_s": step_s,
+           "tokens_per_s": tokens / step_s, "run_s": t_run,
+           "host_snapshot_s": snap.seconds,
+           "host_snapshot_bytes": snap_bytes,
+           "host_peak_rss_bytes": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss * 1024,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "model_flop_per_step": flop,
+           "model_flop_share_of_bf16_peak": flop / step_s / BF16_FLOP_PER_S,
+           "profile_last_step": prof.get("last_step"),
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(rec)
+    require(len(hist) == sizes["steps"]
+            and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0],
+            f"train:step: losses {losses}")
+    require(len(snap.seconds) == 2,
+            f"train:step: {len(snap.seconds)} host snapshots, not 2")
+    del tr, hist
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_compress(torch, dev, seed: int) -> dict:
+    """qwen3-4b at full width, 2 of 36 layers: int8 pod-compressed grads
+    over 2 pods, the int8 weight STE, 2 microbatches and int8 AdamW
+    moments, 3 steps through `make_train_step` with the batch in the
+    podded layout [2, 2, 512].  The pod mean of layers[0].mlp.w_up's grad
+    must hold its bound, every quantized weight `max_weight_error`."""
+    from repro_torch.core import weights as W
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TT
+    from repro_torch.tree import leaves
+
+    cfg, sizes = _train_cfg(TRAIN_CUT_LAYERS), TRAIN
+    npods = sizes["npods"]
+    tcfg = TT.TrainConfig(grad_compress="int8", npods=npods,
+                          weight_compress="int8", microbatches=2,
+                          adamw=adamw.AdamWConfig(quantized_moments=True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                           device=dev)
+    opt = adamw.init(params, tcfg.adamw)
+    weight_err = W.max_weight_error(params)
+    step = TT.make_train_step(cfg, tcfg)
+    pod = {}
+
+    def keep_w_up(grads_podded, mode, n):
+        pod["g"] = grads_podded["layers"][0]["mlp"]["w_up"].clone()
+    dispatch.reset_launches()
+    losses, dts = [], []
+    with _Spy(TT.G, "compressed_psum_mean", keep_w_up) as psum:
+        for s in range(sizes["compress_steps"]):
+            toks = torch.from_numpy(pipeline.host_batch(
+                cfg.vocab, sizes["batch"], sizes["seq"], s, seed).reshape(
+                npods, sizes["batch"] // npods, sizes["seq"])).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, params, opt = step(params, opt, toks)
+            losses.append(float(loss))
+            dts.append(time.perf_counter() - t0)
+    counts = dispatch.launch_counts()
+    # the last step's pod mean of w_up's grad against the plain mean
+    g = pod["g"]
+    got = TT.G.compressed_psum_mean({"w": g}, "int8", npods)["w"]
+    qeff = 127 // npods
+    bound = float(g.abs().max()) / qeff / 2
+    err = float((got - g.mean(0)).abs().max())
+    n_params = sum(t.numel() for t in leaves(params))
+    f32_moments = 2 * 4 * n_params
+    moment_bytes = _state_bytes(torch, (opt.m, opt.v))
+    rec = {"phase": "train:compress", "arch": cfg.name,
+           "layers": cfg.n_layers, "params": n_params,
+           "pods": npods, "microbatches": tcfg.microbatches,
+           "tokens_shape": [npods, sizes["batch"] // npods, sizes["seq"]],
+           "losses": losses, "step_s": dts,
+           "psum_calls": len(psum.seconds), "psum_s": psum.seconds,
+           "w_up_pod_mean_err": err, "w_up_bound": bound,
+           "max_weight_error": weight_err,
+           "moment_bytes": moment_bytes, "moment_bytes_f32": f32_moments,
+           "moment_ratio": moment_bytes / f32_moments,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(rec)
+    require(all(math.isfinite(v) for v in losses)
+            and len(psum.seconds) == sizes["compress_steps"],
+            f"train:compress: {losses}")
+    require(err <= bound * (1 + 1e-6) + 2.0 ** -24 * float(g.abs().max()),
+            f"train:compress: pod mean off by {err} > bound {bound}")
+    require(0 < weight_err <= 1 / 254 + 2.0 ** -23,
+            f"train:compress: max_weight_error {weight_err}")
+    del params, opt, pod, g, got
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_restart(torch, dev, seed: int) -> dict:
+    """Checkpoint and restart at qwen3-4b's width, 2 layers, the default
+    `TrainConfig`: run A (4 steps) saves after steps 1 and 3 through the
+    AsyncWriter (cusz params at eb_valrel 1e-3, the AdamW moments
+    lossless) under one injected transient write failure; run B resumes
+    A's files at step 4 and runs to 6; run C runs 6 steps without
+    checkpoints.  A's losses must match C's, B's must follow C's, and the
+    restored state must be within the stored bound."""
+    import json
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import codecs
+    from repro_torch.dist import chaos
+    from repro_torch.io import checkpoint as CK
+    from repro_torch.kernels import dispatch
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.tree import leaves, leaves_with_path
+
+    cfg, sizes = _train_cfg(TRAIN_CUT_LAYERS), TRAIN
+    tcfg = TrainConfig()
+    steps_a, steps_bc = sizes["restart_steps"]
+    # moments lossless: dual-quant can give a small v back as exactly 0
+    # beside a non-zero m, and m / (sqrt(0) + eps) blows the update up
+    policy = CK.CheckpointPolicy(codec="cusz", eb_valrel=sizes["eb_valrel"],
+                                 rules=(("::.m::", "lossless"),
+                                        ("::.v::", "lossless")))
+    probe_key = "0::layers::0::mlp::w_up"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def loop(steps, d):
+        return TR.LoopConfig(steps=steps, batch=sizes["batch"],
+                             seq=sizes["seq"], seed=seed,
+                             checkpoint_every=sizes["checkpoint_every"],
+                             checkpoint_dir=d, checkpoint_policy=policy)
+
+    def spy_state(tr):
+        seen, step_fn = {}, tr.step_fn
+
+        def step(params, opt, toks):
+            out = step_fn(params, opt, toks)
+            seen["state"] = out[1:]
+            return out
+        tr.step_fn = step
+        return seen
+
+    saved = {}
+
+    def keep_probe(ckpt_dir, step, tree, **kw):
+        saved[step] = tree[0]["layers"][0]["mlp"]["w_up"].clone()
+
+    with tempfile.TemporaryDirectory() as d:
+        dispatch.reset_launches()
+        a = TR.Trainer(cfg, tcfg, loop(steps_a, d), device=dev)
+        seen_a = spy_state(a)
+        t0 = time.perf_counter()
+        with chaos.use_chaos(chaos.from_spec("writer:failures=1")) as monkey, \
+                _Spy(CK, "save_checkpoint", keep_probe) as save, \
+                _Spy(CK, "_write_step") as write, \
+                _Spy(CK, "AsyncWriter") as writers:
+            hist_a = a.run()
+        t_a = time.perf_counter() - t0
+        # B resumes from step 3; step 1's files only take disk space
+        shutil.rmtree(os.path.join(d, "step_00000001"))
+        step_dir = os.path.join(d, "step_00000003")
+        man = json.load(open(os.path.join(step_dir, "manifest.json")))
+        shard_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                          for f in os.listdir(step_dir)
+                          if f.endswith(".npz"))
+        state_a = seen_a["state"]
+        raw_bytes = _state_bytes(torch, state_a)
+        b = TR.Trainer(cfg, tcfg, loop(steps_bc, d), device=dev)
+        t0 = time.perf_counter()
+        with _Spy(CK, "load_checkpoint") as load:
+            hist_b = b.run()
+        t_b = time.perf_counter() - t0
+        c = TR.Trainer(cfg, tcfg, loop(steps_bc, None), device=dev)
+        hist_c = c.run()
+        torch.cuda.synchronize()
+        counts = dispatch.launch_counts()
+
+        # the restored state against A's last one (after step 3, saved)
+        restored, rstep = CK.load_checkpoint(d, TR.state_template(cfg, tcfg),
+                                             step=3, device=dev)
+        fails, codec_of = [], {}
+        for (path, x), y in zip(leaves_with_path(state_a),
+                                leaves(restored)):
+            key = CK._leaf_key(path)
+            e = man["tensors"][key]
+            codec_of[key] = e["codec"]
+            if e["codec"] == "lossless":
+                ok = torch.equal(x, y)
+            else:
+                eb = float(e["shards"][0]["header"]["params"]["eb"])
+                ok = float((y - x).abs().max()) <= eb * (1 + 1e-5) \
+                    + 4 * 2.0 ** -23 * float(x.abs().max())
+            if not ok:
+                fails.append(key)
+        types_ok = type(restored[1]) is adamw.AdamWState \
+            and int(restored[1].count) == int(state_a[1].count) == steps_a
+        # the probe leaf's container, made again by the plain versions
+        e = man["tensors"][probe_key]
+        sh = e["shards"][0]
+        arrays = np.load(os.path.join(step_dir, CK._SHARD_FMT.format(
+            int(sh["shard"]))))
+        prefix = f"{probe_key}::__c__::0::"
+        stored = codecs.from_arrays(sh["header"], {
+            k[len(prefix):]: arrays[k] for k in arrays.files
+            if k.startswith(prefix)})
+        codec = policy.make_codec("cusz")
+        chk = plain_route_check(
+            torch, dispatch, lambda: [codec.pack(codec.encode(saved[3]))],
+            lambda ps: codecs.decode(ps[0], device=dev), [stored],
+            lambda x, y: torch.equal(x, y))
+    la = [h["loss"] for h in hist_a]
+    lb = [h["loss"] for h in hist_b]
+    lc = [h["loss"] for h in hist_c]
+    a_vs_c = max(abs(x - y) / abs(y) for x, y in zip(la, lc[:steps_a]))
+    b_vs_c = max(abs(x - y) / abs(y) for x, y in zip(lb, lc[steps_a:]))
+    missing = [k for k in PATH_KERNELS["cusz"] if counts[k] == 0]
+    retries = sum(w.n_retries for w in writers.results)
+    rec = {"phase": "train:restart", "arch": cfg.name,
+           "layers": cfg.n_layers, "eb_valrel": policy.eb_valrel,
+           "steps": {"A": [h["step"] for h in hist_a],
+                     "B": [h["step"] for h in hist_b],
+                     "C": [h["step"] for h in hist_c]},
+           "losses": {"A": la, "B": lb, "C": lc},
+           "a_vs_c_max_rel": a_vs_c, "a_equals_c_bitwise": la == lc[:steps_a],
+           "b_vs_c_max_rel": b_vs_c,
+           "caller_blocked_s": save.seconds, "write_s": write.seconds,
+           "load_s": load.seconds, "run_s": {"A": t_a, "B": t_b},
+           "raw_bytes": raw_bytes, "stored_bytes": shard_bytes,
+           "ratio": raw_bytes / shard_bytes,
+           "leaves_by_codec": {c: sum(v == c for v in codec_of.values())
+                               for c in sorted(set(codec_of.values()))},
+           "leaf_codecs": codec_of,
+           "write_faults": [e["kind"] for e in monkey.events],
+           "writer_retries": retries, "restored_step": rstep,
+           "leaves_failing": fails, "types_ok": types_ok,
+           "plain_route_leaf": {"key": probe_key, **chk},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "kernels_missing": missing,
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(rec)
+    require([h["step"] for h in hist_b] == list(range(steps_a, steps_bc))
+            and len(save.seconds) == 2 and retries == 1,
+            f"train:restart: resume or saves wrong: {rec['steps']}")
+    require(not fails and types_ok and rstep == 3,
+            f"train:restart: restored state: {fails}, types {types_ok}")
+    require(a_vs_c <= 1e-6 and b_vs_c <= 1e-2,
+            f"train:restart: losses A {la} B {lb} C {lc}")
+    require(not missing and chk["ok"],
+            f"train:restart: kernels {missing}, plain route {chk}")
+    del a, b, c, state_a, restored, saved
+    torch.cuda.empty_cache()
+    return counts
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1748,7 +2169,8 @@ def timed(name: str, fn, *args):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the consumer phases' weights and caches")
+                    help="seed of the consumer, serve and train phases' "
+                         "weights, caches and tokens")
     args = ap.parse_args()
     import torch
 
@@ -1779,8 +2201,13 @@ def main() -> int:
                                        args.seed, qwen_counts)
     per_path["serve:mamba2"] = timed("serve:mamba2", phase_serve_mamba2,
                                      torch, dev, args.seed)
-    # launches summed over the three codecs' main paths and the consumer
-    # phases
+    for name, fn in (("train:step", phase_train_step),
+                     ("train:compress", phase_train_compress),
+                     ("train:restart", phase_train_restart)):
+        torch.cuda.empty_cache()
+        per_path[name] = timed(name, fn, torch, dev, args.seed)
+    # launches summed over the three codecs' main paths, the consumer,
+    # serve and train phases
     summary = [{**kernels[k],
                 "launches": sum(c[k] for c in per_path.values())}
                for k in KERNELS]

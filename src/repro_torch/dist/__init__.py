@@ -1,2 +1,3 @@
-"""Distribution helpers of the port: shard planning and the
-single-process distribution context."""
+"""Distribution helpers of the port: shard planning, the single-process
+distribution context, fault detection and mitigation (`fault`) and
+seeded fault injection (`chaos`)."""

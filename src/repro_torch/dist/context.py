@@ -1,10 +1,13 @@
 """Distribution context: the single-process surface of the reference's
-`repro.dist.context` that the model and serve modules consult.
+`repro.dist.context` that the model, train and serve modules consult.
 
 The port has no meshes yet, so ``current_mesh()`` is always None,
-``constrain`` is the identity, ``weight_gather_info()`` is None and the
-MoE all-to-all compression hook (``use_a2a_compress``) never becomes
-active: as in the reference, it acts only under a mesh.  The serve hooks
+``constrain`` and ``constrain_like_params`` are the identity,
+``weight_gather_info()`` is None, ``current_dp_axes()`` is None unless
+``dp_axes_override`` pins it, and the MoE all-to-all compression hook
+(``use_a2a_compress``) and the weight-gather hook
+(``use_weight_compress``) never become active: as in the reference, they
+act only under a mesh.  The serve hooks
 are whole: ``use_kv_reshard_compress`` arms the
 prefill->decode handoff wire codec and ``use_kv_evict_codec`` the paged
 pool's eviction codec, each validated when armed and each scoped (the
@@ -13,11 +16,13 @@ previous state returns on exit, also on an exception).
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 _kv_reshard_stack: List[Optional[str]] = []
 _a2a_compress_stack: List[Optional[str]] = []
 _kv_evict_stack: List[Optional[str]] = []
+_dp_override_stack: List[Tuple[str, ...]] = []
+_weight_compress_stack: List[Optional[str]] = []
 
 #: codec a bare ``True`` arms
 _DEFAULT_WIRE_CODEC = "int8-block"
@@ -43,6 +48,27 @@ def constrain(x, *spec_elems):
     """Sharding constraint under the current mesh; the identity off-mesh
     (the only case the port has)."""
     return x
+
+
+def dp_axes_override(axes: Tuple[str, ...]):
+    """Override what ``"dp"`` resolves to (the train step pins
+    ``("data",)`` inside its per-pod region)."""
+    return _pushed(_dp_override_stack, tuple(axes))
+
+
+def current_dp_axes() -> Optional[Tuple[str, ...]]:
+    """The data-parallel axes: the innermost override, else the mesh's
+    (None off-mesh)."""
+    if _dp_override_stack:
+        return _dp_override_stack[-1]
+    return None
+
+
+def constrain_like_params(tree, lead_axis: Optional[str] = None):
+    """Constrain a param-shaped tree (gradients, accumulators) with the
+    installed param specs; the identity off-mesh (the only case the port
+    has), as in the reference."""
+    return tree
 
 
 def weight_gather_info():
@@ -81,6 +107,20 @@ def a2a_compress_active() -> bool:
     never in the port until it has meshes."""
     return bool(_a2a_compress_stack and _a2a_compress_stack[-1]
                 and current_mesh() is not None)
+
+
+def use_weight_compress(active):
+    """Arm the FSDP weight-gather compression hook.  `active`: bool or a
+    codec registry name ("int8" = "int8-block"), validated here.  Off-mesh
+    the hook is never consulted (``weight_gather_info`` is None)."""
+    return _pushed(_weight_compress_stack, _codec_name(active))
+
+
+def weight_compress_codec() -> Optional[str]:
+    """Registry name of the armed weight-gather codec (None = off)."""
+    if not (_weight_compress_stack and _weight_compress_stack[-1]):
+        return None
+    return _weight_compress_stack[-1]
 
 
 def _kv_hook_name(active) -> Optional[str]:

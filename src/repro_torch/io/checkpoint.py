@@ -27,9 +27,12 @@ Manifest format 2 (single ``arrays.npz``) stays loadable behind a format
 gate.  Checkpoints are the reference package's format: either package
 loads what the other wrote.
 
-Trees are nested dicts / lists / tuples of tensors (a ``state_dict`` is
-one).  Leaves are visited as the reference visits a pytree (dict keys
-sorted), and a leaf's manifest key is its path joined by ``::``.
+Trees are nested dicts / lists / tuples / NamedTuples of tensors (a
+``state_dict`` is one; so is a train state ``(params, AdamWState)``).
+Leaves are visited as the reference visits a pytree (dict keys sorted,
+NamedTuple fields keyed ``.<field>``), a leaf's manifest key is its path
+joined by ``::``, and `load_checkpoint` gives back the template's
+container types.
 
 Async semantics: pass ``writer=AsyncWriter(...)`` (or ``background=True``,
 which uses a module-default writer).  ``submit`` blocks when the writer
@@ -52,6 +55,8 @@ import torch
 from repro_torch import codecs
 from repro_torch.codecs.base import as_tensor, input_device
 from repro_torch.io.async_writer import AsyncWriter
+from repro_torch.tree import leaves_with_path as _leaves_with_path
+from repro_torch.tree import rebuild as _rebuild
 
 CUSZ_MIN_SIZE = 4096
 MANIFEST_FORMAT = 3
@@ -152,40 +157,11 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Trees: nested dicts / lists / tuples, visited as a JAX pytree is
+# Trees: visited as a JAX pytree is (`repro_torch.tree`)
 # ---------------------------------------------------------------------------
-
-def _leaves_with_path(tree, path=()):
-    """(path, leaf) pairs: dict keys in sorted order, sequences by index,
-    None as an empty subtree (the reference's pytree order)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves_with_path(tree[k], path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves_with_path(v, path + (i,))
-    elif tree is not None:
-        yield path, tree
-
 
 def _leaf_key(path) -> str:
     return _SEP.join(str(k) for k in path)
-
-
-def _rebuild(template, values):
-    """`template`'s structure with its leaves replaced, in visiting order,
-    from the iterator `values`."""
-    if isinstance(template, dict):
-        out = {k: None for k in template}
-        for k in sorted(template):
-            out[k] = _rebuild(template[k], values)
-        return out
-    if isinstance(template, (list, tuple)):
-        items = [_rebuild(v, values) for v in template]
-        return items if isinstance(template, list) else tuple(items)
-    if template is None:
-        return None
-    return next(values)
 
 
 def _flatten(tree, device=None) -> Dict[str, Any]:
@@ -316,8 +292,18 @@ def _encode_tree(flat: Dict[str, Any], policy: CheckpointPolicy,
 
 def _write_shard(path: str, arrays: Dict[str, np.ndarray]) -> None:
     """One host's shard file.  Module-level so crash-consistency tests
-    can inject failures mid-save."""
+    can inject failures mid-save.  Consults the ambient chaos monkey
+    (`dist.chaos`): armed write faults raise here (retried or surfaced by
+    the writer) or silently damage the file after the write (caught by
+    the container checksums at restore)."""
+    from repro_torch.dist import chaos
+    monkey = chaos.current()
+    if monkey is not None:
+        monkey.pre_write(path)
     np.savez(path, **arrays)
+    if monkey is not None:
+        # np.savez appends .npz when the target has no extension
+        monkey.post_write(path if os.path.exists(path) else path + ".npz")
 
 
 def _write_step(ckpt_dir: str, step: int, plans: Sequence[_LeafPlan],

@@ -16,10 +16,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.codecs.base import input_device
 from repro_torch.core import kvcache as KVC
 from repro_torch.dist.context import constrain, weight_gather_info
+from repro_torch.tree import tree_map
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -92,17 +94,7 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
 def param_shapes(cfg: ModelConfig):
     """The parameter tree with `torch.Size` leaves and no allocation (drawn
     on the meta device)."""
-    return _map(lambda t: t.shape, init_params(None, cfg, device="meta"))
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(fn, v) for v in tree))      # NamedTuple
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+    return tree_map(lambda t: t.shape, init_params(None, cfg, device="meta"))
 
 
 def params_from_numpy(tree, device=None):
@@ -121,7 +113,7 @@ def params_from_numpy(tree, device=None):
                 torch.bfloat16).to(device)
         return torch.from_numpy(a).to(device)
 
-    return _map(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 #: leaves the reference reads in f32 whatever the compute dtype: the
@@ -164,7 +156,7 @@ def _mlp(m, cfg: ModelConfig, h):
 
 def _period(layer, i: int):
     """Period `i`'s parameters of one pattern position (a view)."""
-    return _map(lambda t: t[i], layer)
+    return tree_map(lambda t: t[i], layer)
 
 
 def _position_forward(p, cfg: ModelConfig, kind: str, x, pos):
@@ -193,6 +185,25 @@ def _ffn(p, cfg: ModelConfig, kind: str, x):
     return x
 
 
+def _unbind_periods(layer):
+    """One pattern position's stacked parameters as a list of per-period
+    trees (views)."""
+    if isinstance(layer, dict):
+        parts = {k: _unbind_periods(v) for k, v in layer.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(layer.unbind(0))
+
+
+def _period_forward(period_params, cfg: ModelConfig, x, pos):
+    """One period of every pattern position from its per-position
+    parameter trees, without caches (the unit the training forward
+    recomputes)."""
+    for kind, p in zip(cfg.pattern, period_params):
+        x, _ = _position_forward(p, cfg, kind, x, pos)
+    return constrain(x, "dp", None, None)
+
+
 def _stack_caches(per_period):
     """Per-period cache entries of one position -> stacked over periods
     (a (k, v) pair, an MLA latent or a MambaState)."""
@@ -214,7 +225,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     of logits.  Caches, when collected, are per pattern position stacked
     over periods: a GQA (k, v) pair of [n_periods, B, S_total, KV, hd],
     an MLA latent [n_periods, B, S_total, kv_lora + rope] or a
-    MambaState of [n_periods, B, ...]."""
+    MambaState of [n_periods, B, ...].  With autograd recording and no
+    caches collected, each period runs under activation checkpointing:
+    the values are the same, the backward recomputes the period."""
     if weight_gather_info() is not None:
         raise NotImplementedError("weight-gather compression needs a mesh: "
                                   "the distribution slice of the port "
@@ -230,11 +243,21 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     pos = torch.arange(S_total, device=x.device)[None, :].expand(B, S_total)
 
     caches = [[] for _ in cfg.pattern]
-    for period in range(cfg.n_periods):
-        for i, (kind, layer) in enumerate(zip(cfg.pattern,
-                                              params["layers"])):
-            x, c = _position_forward(_period(layer, period), cfg, kind, x,
-                                     pos)
+    # each period's views come from one unbind per stacked leaf, whose
+    # backward stacks the periods' grads once (indexing per period would
+    # add a zero-filled full-size grad per period and leaf)
+    per_period = zip(*(_unbind_periods(layer) for layer in params["layers"]))
+    # training: each period's activations are recomputed in the backward
+    # (the reference's jax.checkpoint(period_body, nothing_saveable));
+    # under no_grad (prefill) the forward runs as it is
+    remat = torch.is_grad_enabled() and not collect_caches
+    for period_params in per_period:
+        if remat:
+            x = checkpoint(_period_forward, period_params, cfg, x, pos,
+                           use_reentrant=False)
+            continue
+        for i, (kind, p) in enumerate(zip(cfg.pattern, period_params)):
+            x, c = _position_forward(p, cfg, kind, x, pos)
             if collect_caches:
                 caches[i].append(c)
         x = constrain(x, "dp", None, None)
@@ -310,7 +333,7 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int,
 def clone_caches(caches: DecodeCaches) -> DecodeCaches:
     """A deep copy of the cache buffers (the decode step writes in
     place)."""
-    return DecodeCaches(_map(lambda t: t.clone(), caches.entries))
+    return DecodeCaches(tree_map(lambda t: t.clone(), caches.entries))
 
 
 def _period_cache(c, i: int):

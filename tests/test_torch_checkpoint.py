@@ -7,7 +7,13 @@ the port, and the checkpoint format held across packages on the CPU:
     reverse, bit for bit;
   * both packages write the same manifest and the same shard files, and
     every stored container is bit-identical to the reference codec's
-    ``pack(encode(leaf))``.
+    ``pack(encode(leaf))``;
+  * a train state ``(params, AdamWState(count, m, v))``, with f32 or
+    int8 ``QTensor`` moments, loads back with its NamedTuple types and
+    the reference's ``.<field>`` keys, and crosses packages both ways bit
+    for bit;
+  * an async save owns its bytes: in-place updates of the tree after
+    `save_checkpoint` returns do not reach the files.
 
 The reference's save consults `repro.dist.chaos`, a module the checkout
 lacks; the cross-package tests put an unarmed stand-in (``current()``
@@ -452,6 +458,81 @@ class TestQuarantine:
 
 
 # ---------------------------------------------------------------------------
+# Train state: NamedTuples, and an async save that owns its bytes
+# ---------------------------------------------------------------------------
+
+def _train_state(quantized: bool):
+    """(params, AdamWState(count, m, v)) with QTensor moments when
+    `quantized` (the port's optimizer state)."""
+    from repro_torch.optim import adamw
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn(32, 256, generator=g),
+              "norm": torch.randn(8, generator=g)}
+    cfg = adamw.AdamWConfig(quantized_moments=quantized)
+    opt = adamw.init(params, cfg)
+    grads = {"w": torch.randn(32, 256, generator=g),
+             "norm": torch.randn(8, generator=g)}
+    return adamw.update(grads, opt, params, cfg), adamw
+
+
+@pytest.mark.parametrize("quantized", (False, True))
+def test_checkpoint_keeps_namedtuple_types(tmp_path, quantized):
+    """A train state's NamedTuples (AdamWState, QTensor) load back as
+    themselves, with every leaf bit for bit and the reference's
+    ``.<field>`` manifest keys."""
+    state, adamw = _train_state(quantized)
+    CK.save_checkpoint(str(tmp_path), 3, state)
+    (params, opt), step = _load(str(tmp_path), state)
+    assert step == 3 and type(opt) is adamw.AdamWState
+    assert int(opt.count) == 1 and opt.count.dim() == 0
+    m_w = opt.m["w"]
+    assert type(m_w) is (adamw.QTensor if quantized else torch.Tensor)
+    _assert_trees_bitwise_equal((params, opt), state)
+    man = json.load(open(os.path.join(str(tmp_path), "step_00000003",
+                                      "manifest.json")))
+    want = {"0::norm", "0::w", "1::.count", "1::.m::norm", "1::.v::norm"}
+    want |= ({"1::.m::w::.q", "1::.m::w::.scale", "1::.v::w::.q",
+              "1::.v::w::.scale"} if quantized else {"1::.m::w", "1::.v::w"})
+    assert set(man["tensors"]) == want
+
+
+def test_async_save_owns_its_bytes(tmp_path):
+    """After an async `save_checkpoint` returns, in-place updates of the
+    tree do not reach the file: leaves stored raw (lossless, ineligible,
+    cusz that falls back to lossless) are snapshotted before the return.
+    The write is held back until after the updates."""
+    g = torch.Generator().manual_seed(1)
+    tree = {"lossless": torch.randn(64, 128, generator=g),
+            "small": torch.randn(8, generator=g),
+            # eb 1e-7 of the range is below f32 resolution for these
+            # values: cusz refuses and the leaf falls back to lossless
+            "fallback": torch.randn(64, 128, generator=g) + 1e4,
+            "cusz": torch.cumsum(torch.randn(64, 128, generator=g), -1),
+            "count": torch.tensor(5, dtype=torch.int32)}
+    before = {k: v.clone() for k, v in tree.items()}
+    policy = CK.CheckpointPolicy(codec="cusz", eb_valrel=1e-4,
+                                 rules=(("lossless", "lossless"),
+                                        ("fallback", "cusz")))
+    gate = threading.Event()
+    with AsyncWriter(max_pending=2) as w:
+        w.submit(gate.wait, 10)
+        CK.save_checkpoint(str(tmp_path), 0, tree, policy=policy, writer=w)
+        for v in tree.values():
+            v.add_(1)
+        gate.set()
+        w.wait()
+    man = json.load(open(os.path.join(str(tmp_path), "step_00000000",
+                                      "manifest.json")))
+    assert man["tensors"]["fallback"]["codec"] == "lossless"
+    assert man["tensors"]["cusz"]["codec"] == "cusz"
+    out, _ = _load(str(tmp_path), before)
+    for k in ("lossless", "small", "fallback", "count"):
+        assert torch.equal(out[k], before[k]), k
+    eb = float(man["tensors"]["cusz"]["shards"][0]["header"]["params"]["eb"])
+    assert float((out["cusz"] - before["cusz"]).abs().max()) <= eb * 1.0001
+
+
+# ---------------------------------------------------------------------------
 # Across packages
 # ---------------------------------------------------------------------------
 
@@ -557,6 +638,47 @@ def test_checkpoints_cross_packages(ref, unarmed_chaos, tmp_path, policy,
                               CK._leaves_with_path(from_port)):
         np.testing.assert_array_equal(
             a.float().numpy(), np.asarray(b.astype(ref.jnp.float32)))
+
+
+@pytest.mark.parametrize("quantized", (False, True))
+def test_train_state_crosses_packages(ref, unarmed_chaos, tmp_path,
+                                      quantized):
+    """A train state (params, AdamWState) written by the reference loads
+    into the port's template with the port's NamedTuples, and the
+    reverse, every leaf bit for bit (cusz policy: the f32 params and
+    moments go through cusz or fall back, the rest lossless)."""
+    from repro_torch.optim import adamw as TA
+    jax = importlib.import_module("jax")
+    RA = importlib.import_module("repro.optim.adamw")
+    rng = np.random.default_rng(0)
+    shapes = {"w": (32, 256), "norm": (8,)}
+    p = {k: ref.jnp.asarray(rng.standard_normal(s).astype(np.float32))
+         for k, s in shapes.items()}
+    g = {k: ref.jnp.asarray(rng.standard_normal(s).astype(np.float32))
+         for k, s in shapes.items()}
+    rcfg = RA.AdamWConfig(quantized_moments=quantized)
+    rp, rs = RA.update(g, RA.init(p, rcfg), p, rcfg)
+    policy = dict(codec="cusz", eb_valrel=1e-4)
+    ref.CK.save_checkpoint(str(tmp_path / "ref"), 1, (rp, rs),
+                           policy=ref.CK.CheckpointPolicy(**policy))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in rp.items()}
+    ts = TA.opt_state_from_numpy(jax.tree.map(np.asarray, rs), device="cpu")
+    (p2, s2), step = _load(str(tmp_path / "ref"), (tp, ts))
+    assert step == 1 and type(s2) is TA.AdamWState
+    assert type(s2.m["w"]) is (TA.QTensor if quantized else torch.Tensor)
+    want, _ = ref.CK.load_checkpoint(str(tmp_path / "ref"), (rp, rs))
+    for a, (_, b) in zip(_leaves((p2, s2)),
+                         CK._leaves_with_path(jax.tree.map(np.asarray,
+                                                           want))):
+        assert a.numpy().tobytes() == np.asarray(b).tobytes()
+    CK.save_checkpoint(str(tmp_path / "port"), 2, (p2, s2),
+                       policy=CK.CheckpointPolicy(**policy))
+    (p3, s3), step = ref.CK.load_checkpoint(str(tmp_path / "port"),
+                                            (rp, rs))
+    assert step == 2 and type(s3) is RA.AdamWState
+    assert type(s3.m["w"]) is (RA.QTensor if quantized else type(rp["w"]))
+    for a, b in zip(_leaves((p2, s2)), jax.tree.leaves((p3, s3))):
+        assert a.numpy().tobytes() == np.asarray(b).tobytes()
 
 
 # ---------------------------------------------------------------------------

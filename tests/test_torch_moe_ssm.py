@@ -56,6 +56,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 from repro_torch.serve import engine as TE
 from repro_torch.serve import scheduler as TS
+from repro_torch.tree import tree_map
 
 ATOL = RTOL = 1e-4
 
@@ -227,7 +228,7 @@ def test_moe_top_k_ties_keep_the_lower_expert_first(ref):
 def _moe_bf16(ref, device):
     tcfg, rcfg = _cfgs(ref, "deepseek-v2-236b")
     p_ref, p = _layer(ref, rcfg, "moe", seed=3)
-    p = TM._map(lambda t: t.to(device), p)
+    p = tree_map(lambda t: t.to(device), p)
     x = ref.jnp.asarray(np.random.default_rng(3).standard_normal(
         (2, 32, tcfg.d_model)).astype(np.float32)).astype(ref.jnp.bfloat16)
     got = _f(tmoe.moe_forward(p, tcfg, _t(x, device)))
@@ -476,7 +477,7 @@ def test_every_arch_runs_every_entry_point(arch):
 # ---------------------------------------------------------------------------
 
 def _card(p, dev):
-    return TM._map(lambda t: t.to(dev), p)
+    return tree_map(lambda t: t.to(dev), p)
 
 
 @pytest.mark.cuda

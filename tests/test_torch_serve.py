@@ -57,6 +57,7 @@ from repro_torch.models import ssm as tssm
 from repro_torch.serve import engine as TE
 from repro_torch.serve import pool as TP
 from repro_torch.serve import scheduler as TS
+from repro_torch.tree import tree_map
 
 WIRES = ("int8-block", "cusz", "fz", "lossless")
 SEQ_AXIS = 2
@@ -922,7 +923,7 @@ def test_launch_serve_cli_new_archs(capsys, arch, extra):
 def _on_card(model, dev):
     """`model` with the port's weights on `dev` (the reference's stay)."""
     card = copy.copy(model)
-    card.tp = TM._map(lambda t: t.to(dev), model.tp)
+    card.tp = tree_map(lambda t: t.to(dev), model.tp)
     return card
 
 
