@@ -3,8 +3,9 @@
 three codecs (cusz, cusz-i, fz) with every CUDA kernel of their paths
 held against its plain PyTorch version, their consumers, the serving
 path of three model families: dense (qwen3-4b), MLA + MoE
-(deepseek-v2-236b, 2 layers) and Mamba2/SSD (mamba2-1.3b), and the
-training path (qwen3-4b) with its cusz restart files.
+(deepseek-v2-236b, 2 layers) and Mamba2/SSD (mamba2-1.3b), the
+training path (qwen3-4b) with its cusz restart files, and the device
+mesh on a one-rank NCCL group.
 
 Run from the repository root, with no arguments:
 
@@ -110,10 +111,29 @@ Phases, each printing one JSON line:
             (lossless leaves exact, AdamWState and count as written);
             one cusz leaf's container made again by the plain versions,
             byte for byte
+  mesh:*    on a one-rank NCCL process group (in-process store), every
+            mesh axis of size 1, torn down before the summary:
+            `mesh:train` (qwen3-4b's width, 2 layers, on a ("pod",
+            "data", "model") mesh with FSDP specs and the int8 weight
+            gather, 3 steps of 4 x 512: losses equal to the mesh-less
+            `compress_for_gather` run within 1e-6, step times on and off
+            the mesh, kernels per step, `CommDebugMode` counts),
+            `mesh:moe` (deepseek-v2-236b's widths, 2 layers: one forward
+            of 4 x 512 with the int8-block all-to-all against the plain
+            one; finite logits, the dispatch within its bound),
+            `mesh:reshard` (qwen3-4b full: prefill on mesh A, the
+            int8-block and cusz handoffs, `reshard_caches` onto mesh B,
+            16 greedy tokens; the int8-block leg adopted with no decode
+            and equal to the mesh-less `generate`'s tokens, the cusz leg
+            on kernels 1-6 with its first K leaf's containers again by
+            the plain versions) and `mesh:checkpoint` (the 2-layer
+            parameters placed FSDP, cusz saves in 1 and 4 shards, the
+            elastic restore onto mesh B bit-equal, one leaf by the plain
+            versions, the `use_restore_compress` wire leg in its bound)
 
-Each of the consumer, serve and train phases is driven with the launch
-counts set to 0 just before it (each serve phase before itself) and
-read just after it; "timing" lines give each phase's seconds; `--seed`
+Each of the consumer, serve, train and mesh phases is driven with the
+launch counts set to 0 just before it (each serve phase before itself)
+and read just after it; "timing" lines give each phase's seconds; `--seed`
 sets the data of the consumer, serve and train phases.
 
 then the `{"kernels": [...]}` summary and, last, the device line.  Any
@@ -2158,6 +2178,462 @@ def phase_train_restart(torch, dev, seed: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the mesh: one rank of a real process group (NCCL on the card), the
+# reference's axis names at size 1
+# ---------------------------------------------------------------------------
+
+MESH = dict(train_steps=3, batch=4, seq=512, new=16, eb_valrel=1e-3,
+            nshards=4)
+
+
+def _block_bound(torch, x, block: int):
+    """Per value, the int8-block codec's bound along the last dim: half a
+    step (block amax / 127 / 2) plus the rounding of the decoded value to
+    x's dtype."""
+    xf = x.float()
+    shape = xf.shape[:-1] + (xf.shape[-1] // block, block)
+    amax = xf.reshape(shape).abs().amax(-1, keepdim=True)
+    ulp = 2.0 ** -8 if x.dtype == torch.bfloat16 else 2.0 ** -23
+    return (amax / 127 / 2 * (1 + 1e-6) + amax * ulp).expand(
+        shape).reshape(xf.shape)
+
+
+def phase_mesh_train(torch, dev, seed: int) -> dict:
+    """qwen3-4b at full width, 2 of 36 layers, on a ("pod", "data",
+    "model") mesh: parameters placed by `param_specs(fsdp=True)`, so the
+    int8 weight gather acts on every quantizable layer leaf;
+    weight_compress int8, a2a_compress none; 3 steps of 4 x 512 tokens.
+    The same steps mesh-less, with `compress_for_gather` on the same
+    leaves, must give losses equal within 1e-6 relative.  Step 1 runs
+    under `CommDebugMode`, step 2 under a device-only profiler (both
+    runs), for the step time and the kernels per step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.core import weights as W
+    from repro_torch.data import pipeline
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.context import use_mesh, use_param_specs
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TT
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    cfg, sizes = _train_cfg(TRAIN_CUT_LAYERS), MESH
+    tcfg = TT.TrainConfig(weight_compress="int8", a2a_compress="none")
+    plain = TT.TrainConfig()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = LM.make_mesh((1, 1, 1), ("pod", "data", "model"), dev.type)
+    params = M.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                           device=dev)
+    twin = tree_map(torch.clone, params)
+    pspecs = SH.param_specs(params, mesh, fsdp=True)
+    placed = SH.place(params, SH.param_shardings(params, mesh, fsdp=True))
+    del params
+    gathered = [path for path, sp in leaves_with_path(pspecs["layers"])
+                if W._has_data(sp)]
+
+    def batch(s):
+        return torch.from_numpy(pipeline.host_batch(
+            cfg.vocab, sizes["batch"], sizes["seq"], s, seed)).to(dev)
+
+    def run(step_fn, params, opt, wrap):
+        losses, dts, extra = [], [], {}
+        for s in range(sizes["train_steps"]):
+            toks = wrap(batch(s))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if s == 1:
+                comm = CommDebugMode()
+                with comm:
+                    loss, params, opt = step_fn(params, opt, toks)
+                extra["comm_counts"] = {
+                    str(k): v for k, v in comm.get_comm_counts().items()}
+            elif s == 2:
+                (loss, params, opt), extra["profile"] = profile_train_step(
+                    torch, step_fn, params, opt, toks)
+            else:
+                loss, params, opt = step_fn(params, opt, toks)
+            losses.append(float(loss))
+            dts.append(time.perf_counter() - t0)
+        return losses, dts, extra
+
+    dispatch.reset_launches()
+    with use_mesh(mesh), use_param_specs(pspecs):
+        on = run(TT.make_train_step(cfg, tcfg), placed,
+                 adamw.init(placed, tcfg.adamw),
+                 lambda t: SH.NamedSharding(mesh, SH.batch_spec(mesh))
+                 .place(t))
+    counts = dict(dispatch.launch_counts())
+    del placed
+
+    def meshless(params, opt, toks):
+        use = dict(params)
+        use["layers"] = W.compress_for_gather(params["layers"])
+        loss, grads = TT._microbatched_grads(use, cfg, plain, toks, None)
+        del use
+        params, opt = adamw.update(grads, opt, params, plain.adamw)
+        return loss, params, opt
+
+    off = run(meshless, twin, adamw.init(twin, plain.adamw), lambda t: t)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on[0], off[0]))
+    rec = {"phase": "mesh:train", "arch": cfg.name, "layers": cfg.n_layers,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "backend": dist.get_backend(),
+           "weight_compress": tcfg.weight_compress,
+           "gathered_leaves": len(gathered),
+           "losses": {"mesh": on[0], "meshless": off[0]},
+           "max_rel_diff": rel,
+           "step_s": {"mesh": on[1], "meshless": off[1]},
+           "profiled_step_s": {"mesh": on[2]["profile"]["wall_s"],
+                               "meshless": off[2]["profile"]["wall_s"]},
+           "kernels_per_step": {
+               "mesh": on[2]["profile"]["kernels_per_step"],
+               "meshless": off[2]["profile"]["kernels_per_step"]},
+           "device_busy_share": {
+               "mesh": on[2]["profile"]["device_busy_share"],
+               "meshless": off[2]["profile"]["device_busy_share"]},
+           "comm_counts": on[2]["comm_counts"],
+           "comm_counts_meshless": off[2]["comm_counts"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(rec)
+    require(gathered and all(math.isfinite(v) for v in on[0] + off[0])
+            and rel <= 1e-6,
+            f"mesh:train: losses {on[0]} against mesh-less {off[0]}")
+    del twin
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mesh_moe(torch, dev, seed: int) -> dict:
+    """deepseek-v2-236b at its published widths, 2 of 60 layers, on a
+    ("data", "model") mesh: one forward of 4 x 512 tokens with the MoE
+    all-to-all compressed (`use_a2a_compress("int8-block")`) against the
+    uncompressed one (each timed after one untimed warm-up).  The logits
+    must be finite and the dispatch tensor that crossed compressed
+    within the int8-block bound of the one that went in."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.dist import context as ctx
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(configs.get("deepseek-v2-236b"),
+                              n_layers=DEEPSEEK_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = LM.make_mesh((1, 1), ("data", "model"), dev.type)
+    params = M.cast_params(M.init_params(
+        torch.Generator(dev).manual_seed(seed), cfg, device=dev),
+        torch.bfloat16)
+    placed = SH.place(params, SH.param_shardings(params, mesh))
+    del params
+    prompt = random_prompt(torch, np, cfg, dev, MESH["batch"], MESH["seq"],
+                           seed)
+    toks = ctx.resolve_sharding(mesh, prompt.shape, "data").place(prompt)
+    crossed, keep = [], moe._compressed_reshard
+
+    def spy(x, to_spec, from_spec):
+        out = keep(x, to_spec, from_spec)
+        if not crossed:
+            crossed.append((x.full_tensor(), out.full_tensor()))
+        return out
+
+    def forward():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = M.forward(placed, cfg, toks)
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    dispatch.reset_launches()
+    secs = {}
+    moe._compressed_reshard = spy
+    try:
+        with ctx.use_mesh(mesh), torch.no_grad():
+            forward()
+            plain, secs["plain"] = forward()
+            finite_plain = bool(torch.isfinite(plain.full_tensor()).all())
+            del plain
+            with ctx.use_a2a_compress("int8-block"):
+                forward()
+                crossed.clear()
+                logits, secs["int8-block"] = forward()
+    finally:
+        moe._compressed_reshard = keep
+    counts = dict(dispatch.launch_counts())
+    full = logits.full_tensor()
+    finite = bool(torch.isfinite(full).all())
+    x, y = crossed[0]
+    err = (y.float() - x.float()).abs()
+    within = bool((err <= _block_bound(torch, x, moe._qblock(
+        x.shape[-1]))).all())
+    rec = {"phase": "mesh:moe", "arch": cfg.name,
+           "depth_cut": f"{cfg.n_layers} of 60 layers",
+           "tokens": list(prompt.shape), "logits": list(full.shape),
+           "forward_s": secs, "compressed_over_plain":
+           secs["int8-block"] / secs["plain"],
+           "dispatch_shape": list(x.shape),
+           "dispatch_max_err": float(err.max()),
+           "dispatch_within_bound": within, "logits_finite": finite,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(rec)
+    require(finite and finite_plain and within,
+            f"mesh:moe: finite {finite}/{finite_plain}, bound {within}")
+    del placed, logits, full, crossed
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mesh_reshard(torch, dev, seed: int) -> dict:
+    """qwen3-4b at its published width and depth: prefill 4 x 512 on mesh
+    A, `encode_handoff` on the int8-block and cusz wires,
+    `reshard_caches(mesh=B)`, 16 greedy tokens on mesh B.  The
+    int8-block leg must adopt every cache tensor with no decode and give
+    the mesh-less `generate`'s tokens; the cusz leg runs kernels 1-6, and
+    its first cache tensor's containers, encoded from the mesh-placed
+    leaf, must equal the plain versions' byte for byte."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import kvcache as KV
+    from repro_torch.dist import context as ctx
+    from repro_torch.dist import sharding as SH
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+
+    cfg = configs.get("qwen3-4b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_a = LM.make_mesh((1, 1), ("data", "model"), dev.type)
+    mesh_b = LM.make_mesh((1, 1), ("data", "model"), dev.type)
+    params = M.cast_params(M.init_params(
+        torch.Generator(dev).manual_seed(seed), cfg, device=dev),
+        torch.bfloat16)
+    scfg = E.ServeConfig(s_max=SERVE["s_max"], compressed_kv=True)
+    prompt = random_prompt(torch, np, cfg, dev, MESH["batch"], MESH["seq"],
+                           seed)
+    want = E.generate(params, cfg, prompt, MESH["new"], scfg)
+    pa = SH.place(params, SH.param_shardings(params, mesh_a))
+    pb = SH.place(params, SH.param_shardings(params, mesh_b))
+    del params
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    with ctx.use_mesh(mesh_a):
+        last, caches, plen = E.prefill(
+            pa, cfg, ctx.resolve_sharding(mesh_a, prompt.shape, "data")
+            .place(prompt), scfg)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    last_b = ctx.resolve_sharding(mesh_b, last.shape, "data").place(
+        last.full_tensor())
+    legs, total = {}, {}
+    for wire in ("int8-block", "cusz"):
+        t0 = time.perf_counter()
+        with ctx.use_mesh(mesh_a):
+            h = E.encode_handoff(caches, cfg, scfg, wire=wire, plen=plen)
+        hs = dict(E.LAST_HANDOFF_STATS)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with ctx.use_mesh(mesh_b):
+            cb = E.reshard_caches(h, cfg, scfg)
+            rs = dict(E.LAST_RESHARD_STATS)
+            q = cb.entries[0][0].q
+            on_b = q.device_mesh is mesh_b and q.dtype == torch.int8
+            toks = E.decode_tokens(pb, cfg, scfg, last_b, cb, plen,
+                                   MESH["new"]).full_tensor()
+        torch.cuda.synchronize()
+        legs[wire] = {"handoff": hs, "reshard": rs, "encode_s": t_enc,
+                      "reshard_decode_s": time.perf_counter() - t0,
+                      "q_on_mesh_b": on_b,
+                      "tokens_equal_meshless": bool(torch.equal(toks,
+                                                                want)),
+                      "token_agreement": float((toks == want).float()
+                                               .mean())}
+        if wire == "cusz":
+            counts = dict(dispatch.launch_counts())
+            leaf = caches.entries[0][0]
+            parts = h.entries[0][0]
+            legs[wire]["plain_route_leaf"] = plain_route_check(
+                torch, dispatch,
+                lambda: KV.kv_wire_encode(
+                    E._gather(leaf), E.HANDOFF_SEQ_AXIS, wire="cusz",
+                    source_dtype=scfg.compute_dtype),
+                lambda ps: KV.kv_wire_restore(ps, E.HANDOFF_SEQ_AXIS,
+                                              dtype=scfg.compute_dtype,
+                                              device=dev),
+                parts, lambda a, b: torch.equal(a, b))
+        del h, cb
+    n_cache = 2 * len(cfg.pattern)      # K and V, stacked over layers
+    missing = [k for k in PATH_KERNELS["cusz"] if counts[k] == 0]
+    rec = {"phase": "mesh:reshard", "arch": cfg.name,
+           "layers": cfg.n_layers, "tokens": list(prompt.shape),
+           "new": MESH["new"], "prefill_s": t_prefill, "legs": legs,
+           "cache_tensors": n_cache, "kernels_missing": missing,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(rec)
+    i8 = legs["int8-block"]
+    require(i8["reshard"]["adopted_quantkv"] == n_cache
+            and i8["reshard"]["decoded"] == 0 and i8["q_on_mesh_b"]
+            and i8["tokens_equal_meshless"],
+            f"mesh:reshard: int8-block leg {i8}")
+    require(not missing and legs["cusz"]["plain_route_leaf"]["ok"]
+            and legs["cusz"]["q_on_mesh_b"],
+            f"mesh:reshard: cusz leg, kernels missing {missing}")
+    del pa, pb, caches, last, last_b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mesh_checkpoint(torch, dev, seed: int) -> dict:
+    """The 2-layer qwen3-4b parameters placed FSDP on mesh A, saved with
+    a cusz policy (eb_valrel 1e-3) in one file and through the
+    AsyncWriter in 4; `load_checkpoint(shardings=)` onto mesh B must be
+    bit-equal between the two, one cusz leaf's stored container must be
+    the plain versions' encode of the gathered leaf, and the
+    `use_restore_compress("int8-block")` leg of a lossless save must hold
+    its bound with fewer wire bytes than raw ones."""
+    import json
+    import os
+
+    import numpy as np
+
+    from repro_torch import codecs
+    from repro_torch.dist import context as ctx
+    from repro_torch.dist import sharding as SH
+    from repro_torch.io import checkpoint as CK
+    from repro_torch.io.async_writer import AsyncWriter
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaves
+
+    cfg, sizes = _train_cfg(TRAIN_CUT_LAYERS), MESH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_a = LM.make_mesh((1, 1), ("data", "model"), dev.type)
+    mesh_b = LM.make_mesh((1, 1), ("data", "model"), dev.type)
+    params = M.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                           device=dev)
+    placed = SH.place(params, SH.param_shardings(params, mesh_a, fsdp=True))
+    shard_b = SH.param_shardings(params, mesh_b, fsdp=True)
+    policy = CK.CheckpointPolicy(codec="cusz", eb_valrel=sizes["eb_valrel"])
+    probe = "layers::0::mlp::w_up"
+    secs = {}
+    with tempfile.TemporaryDirectory() as d:
+        d1, d4, dl = (os.path.join(d, x) for x in ("one", "four", "raw"))
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        CK.save_checkpoint(d1, 0, placed, policy=policy, nshards=1)
+        secs["save_sync"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with AsyncWriter(max_pending=1) as w:
+            CK.save_checkpoint(d4, 0, placed, policy=policy,
+                               nshards=sizes["nshards"], writer=w)
+            secs["save_async_caller"] = time.perf_counter() - t0
+            w.wait()
+        secs["save_async"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with ctx.use_mesh(mesh_b):
+            a, _ = CK.load_checkpoint(d1, params, shardings=shard_b)
+            secs["load_one"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b, _ = CK.load_checkpoint(d4, params, shardings=shard_b)
+            torch.cuda.synchronize()
+            secs["load_four"] = time.perf_counter() - t0
+        stats = dict(CK.LAST_RESTORE_STATS)
+        counts = dict(dispatch.launch_counts())
+        equal = all(torch.equal(x.full_tensor(), y.full_tensor())
+                    for x, y in zip(leaves(a), leaves(b)))
+        on_b = all(x.device_mesh is mesh_b for x in leaves(b))
+        del a, b
+        # one cusz leaf of the 4-shard save against the plain versions
+        man = json.load(open(os.path.join(d4, "step_00000000",
+                                          "manifest.json")))
+        e = man["tensors"][probe]
+        stored = []
+        for i, sh in enumerate(e["shards"]):
+            arrays = np.load(os.path.join(d4, "step_00000000",
+                                          CK._SHARD_FMT.format(
+                                              int(sh["shard"]))))
+            prefix = f"{probe}::__c__::{i}::"
+            stored.append(codecs.from_arrays(sh["header"], {
+                k[len(prefix):]: arrays[k] for k in arrays.files
+                if k.startswith(prefix)}))
+        codec = policy.make_codec("cusz")
+        leaf = placed["layers"][0]["mlp"]["w_up"]
+        axis = e["axis"]
+
+        def plain_encode():
+            whole = leaf.full_tensor()
+            if axis is None:
+                return [codec.pack(codec.encode(whole))]
+            return [codec.pack(p) for p in codec.encode_parts(
+                whole, int(axis), len(e["shards"]))]
+        chk = plain_route_check(
+            torch, dispatch, plain_encode,
+            lambda ps: [codecs.decode(p, device=dev) for p in ps], stored,
+            lambda x, y: all(torch.equal(u, v) for u, v in zip(x, y)))
+        # the restore-leg wire on a lossless save
+        CK.save_checkpoint(dl, 0, placed, nshards=sizes["nshards"])
+        with ctx.use_mesh(mesh_b):
+            plain, _ = CK.load_checkpoint(dl, params, shardings=shard_b)
+            t0 = time.perf_counter()
+            with ctx.use_restore_compress("int8-block"):
+                coded, _ = CK.load_checkpoint(dl, params,
+                                              shardings=shard_b)
+            torch.cuda.synchronize()
+            secs["load_recoded"] = time.perf_counter() - t0
+        rstats = dict(CK.LAST_RESTORE_STATS)
+        worst = 0.0
+        for x, y in zip(leaves(plain), leaves(coded)):
+            x, y = x.full_tensor(), y.full_tensor()
+            worst = max(worst, float((x - y).abs().max())
+                        / max(float(x.abs().max()) / 127.0, 1e-30))
+    missing = [k for k in PATH_KERNELS["cusz"] if counts[k] == 0]
+    rec = {"phase": "mesh:checkpoint", "arch": cfg.name,
+           "layers": cfg.n_layers, "eb_valrel": policy.eb_valrel,
+           "nshards": sizes["nshards"], "seconds": secs,
+           "restore_stats": stats, "bit_equal_1_vs_4": equal,
+           "placed_on_mesh_b": on_b, "plain_route_leaf": {"key": probe,
+                                                          **chk},
+           "recode_stats": rstats, "recode_err_in_steps": worst,
+           "kernels_missing": missing,
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(rec)
+    require(equal and on_b and chk["ok"] and not missing,
+            f"mesh:checkpoint: equal {equal}, on B {on_b}, plain route "
+            f"{chk}, kernels missing {missing}")
+    require(rstats["recoded_leaves"] > 0 and worst <= 0.51
+            and rstats["wire_bytes"] < rstats["raw_bytes"],
+            f"mesh:checkpoint: restore leg {rstats}, err {worst} steps")
+    del placed, params, plain, coded
+    torch.cuda.empty_cache()
+    return counts
+
+
+MESH_PHASES = (("mesh:train", phase_mesh_train),
+               ("mesh:moe", phase_mesh_moe),
+               ("mesh:reshard", phase_mesh_reshard),
+               ("mesh:checkpoint", phase_mesh_checkpoint))
+
+
 def timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2206,8 +2682,15 @@ def main() -> int:
                      ("train:restart", phase_train_restart)):
         torch.cuda.empty_cache()
         per_path[name] = timed(name, fn, torch, dev, args.seed)
+    # the mesh phases on a one-rank NCCL group, torn down before the
+    # summary
+    from repro_torch.launch import mesh as LM
+    with LM.process_group("cuda"):
+        for name, fn in MESH_PHASES:
+            torch.cuda.empty_cache()
+            per_path[name] = timed(name, fn, torch, dev, args.seed)
     # launches summed over the three codecs' main paths, the consumer,
-    # serve and train phases
+    # serve, train and mesh phases
     summary = [{**kernels[k],
                 "launches": sum(c[k] for c in per_path.values())}
                for k in KERNELS]

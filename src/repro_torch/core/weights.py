@@ -6,11 +6,17 @@ straight-through estimator keeps the backward exact with respect to the
 f32 masters: quantized communication and compute, not quantized storage.
 Error bound per element: scale/2 with scale = blockmax/127.
 
-The port has no mesh yet, so it carries the reference's mesh-less form,
-`compress_for_gather` (the additive STE ``p + (qdq(p) - p).detach()``,
-which is the reference's ``p + stop_gradient(qdq(p) - p)``), and
-`max_weight_error`.  The mesh gathers (`gather_dequant_leaf`,
-`gather_dequant_tree`) come with the port's meshes.
+Off-mesh the form is `compress_for_gather`, the additive STE
+``p + (qdq(p) - p).detach()`` (the reference's
+``p + stop_gradient(qdq(p) - p)``).  On a mesh that form would gather the
+f32 master; there `gather_dequant_tree` runs inside the model's period
+loop, one period's weights at a time: each FSDP-sharded leaf is
+quantized where it lies, its int8 codes and f32 block scales are
+redistributed from the FSDP placement to the one without ``"data"`` (the
+all-gather moves int8), and the gathered codes are dequantized for the
+products.  The backward is the identity to the f32 master
+(`gather_dequant_leaf`, an autograd Function: the reference's
+``custom_vjp``), reduce-scattered back onto the master's placement.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Any
 import torch
 
 from repro_torch.codecs import int8 as I8
+from repro_torch.dist.sharding import P, mesh_shape, placements
 from repro_torch.tree import leaves_with_path, rebuild
 
 QBLOCK = 128
@@ -55,6 +62,81 @@ def compress_for_gather(params: Any) -> Any:
             with torch.no_grad():
                 delta = _qdq(p) - p
             p = p + delta
+        out.append(p)
+    return rebuild(params, iter(out))
+
+
+# ---------------------------------------------------------------------------
+# mesh-aware int8 weight gather
+# ---------------------------------------------------------------------------
+
+def _drop_data(spec) -> P:
+    """The spec without the FSDP axis (tensor-parallel axes kept)."""
+    def clean(el):
+        if el == "data":
+            return None
+        if isinstance(el, (tuple, list)):
+            kept = tuple(a for a in el if a != "data")
+            return kept if kept else None
+        return el
+    return P(*[clean(e) for e in spec])
+
+
+def _has_data(spec) -> bool:
+    return any(el == "data" or (isinstance(el, (tuple, list))
+                                and "data" in el) for el in spec)
+
+
+class _GatherDequant(torch.autograd.Function):
+    """Forward: quantize the local shard of the master, redistribute the
+    int8 codes and f32 scales to `tgt` (the all-gather over "data" moves
+    int8), dequantize.  Backward: the identity to the master, with the
+    cotangent redistributed onto the master's placements."""
+
+    @staticmethod
+    def forward(ctx, p, mesh, src, tgt):
+        from torch.distributed.tensor import DTensor
+
+        ctx.mesh, ctx.src = mesh, src
+        q, scale = I8.block_quantize(p.to_local().to(torch.float32), -1,
+                                     QBLOCK, reciprocal=True)
+        q = DTensor.from_local(q, mesh, src, run_check=False)
+        scale = DTensor.from_local(scale, mesh, src, run_check=False)
+        q = q.redistribute(mesh, tgt).to_local()
+        scale = scale.redistribute(mesh, tgt).to_local()
+        out = I8.block_dequantize(q, scale, -1, QBLOCK, p.dtype)
+        return DTensor.from_local(out, mesh, tgt, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.src), None, None, None
+
+
+def gather_dequant_leaf(p, spec, mesh):
+    """`p` (a DTensor placed by `spec`) as int8-quantized values placed
+    without "data": the int8 gather.  The gradient passes straight
+    through to the f32 master."""
+    return _GatherDequant.apply(p, mesh, placements(spec, mesh, p.dim()),
+                                placements(_drop_data(spec), mesh, p.dim()))
+
+
+def gather_dequant_tree(params: Any, specs: Any, mesh) -> Any:
+    """`gather_dequant_leaf` on every quantizable FSDP-sharded leaf of one
+    period's parameters (called inside the period loop, so only one
+    period's weights are held gathered at a time).  A leaf whose local
+    last dim is not block-aligned passes through, as in the reference."""
+    sizes = mesh_shape(mesh)
+    flat_specs = [sp for _, sp in leaves_with_path(specs)]
+    out = []
+    for (path, p), spec in zip(leaves_with_path(params), flat_specs):
+        if _quantizable(_names(path), p) and _has_data(spec):
+            last = spec[-1] if len(spec) == p.dim() else None
+            div = 1
+            if last is not None:
+                for a in (last if isinstance(last, tuple) else (last,)):
+                    div *= sizes[a]
+            if (p.shape[-1] // div) % QBLOCK == 0:
+                p = gather_dequant_leaf(p, spec, mesh)
         out.append(p)
     return rebuild(params, iter(out))
 

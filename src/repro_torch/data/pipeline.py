@@ -4,7 +4,8 @@ Tokens follow a fixed random permutation table with ε-uniform noise, so
 the stream is learnable (the loss falls) yet needs no disk or network.
 A batch is a pure function of (seed, step), in numpy, bit for bit the
 reference's (`repro.data.pipeline.host_batch`): restarts replay the same
-data.  The mesh-sharded `global_batch` comes with the port's meshes.
+data.  `global_batch` places it on a mesh: every rank builds the same
+host batch and keeps only its own slice.
 """
 from __future__ import annotations
 
@@ -32,3 +33,21 @@ def host_batch(vocab: int, batch: int, seq: int, step: int,
         follow = table[toks[:, t - 1]]
         toks[:, t] = np.where(flips[:, t], rand[:, t], follow)
     return toks.astype(np.int32)
+
+
+def global_batch(mesh, vocab: int, batch: int, seq: int, step: int,
+                 seed: int = 0, podded: bool = False):
+    """The global [B,S] batch (or [npods, B/npods, S] when `podded`) as a
+    DTensor on `mesh`, placed by `sharding.batch_spec`: each rank keeps
+    its slice of the deterministic host batch, nothing moves."""
+    import torch
+
+    from repro_torch.dist.sharding import NamedSharding, batch_spec, \
+        mesh_shape
+
+    full = host_batch(vocab, batch, seq, step, seed)
+    if podded:
+        npods = mesh_shape(mesh)["pod"]
+        full = full.reshape(npods, batch // npods, seq)
+    t = torch.from_numpy(full).to(mesh.device_type)
+    return NamedSharding(mesh, batch_spec(mesh, podded)).place(t)

@@ -38,6 +38,19 @@ Async semantics: pass ``writer=AsyncWriter(...)`` (or ``background=True``,
 which uses a module-default writer).  ``submit`` blocks when the writer
 falls behind (bounded queue), and write failures re-raise at the next
 save / ``writer.wait()`` — never silently lost.
+
+On a mesh (DTensor leaves) the reference's single controller holds:
+every rank joins the ``full_tensor()`` gathers, rank 0 encodes and
+writes every shard file and the manifest (the bytes of a mesh-less save
+of the same tree), and all ranks pass a barrier.  With an async writer
+the files are complete once rank 0's writer drains;
+``load_checkpoint(shardings=)`` starts with a barrier, so a restore on
+every rank after rank 0's ``wait`` reads whole files.  It decodes each
+leaf on every rank and places it with the given `NamedSharding` tree:
+the elastic restore onto a mesh of another shape.  With
+``dist.context.use_restore_compress`` armed, raw (lossless-stored) float
+leaves move to the device as the blockwise int8 wire codec's codes and
+scales instead (lossy, scale/2), counted in ``LAST_RESTORE_STATS``.
 """
 from __future__ import annotations
 
@@ -59,6 +72,7 @@ from repro_torch.tree import leaves_with_path as _leaves_with_path
 from repro_torch.tree import rebuild as _rebuild
 
 CUSZ_MIN_SIZE = 4096
+WIRE_BLOCK = 128                 # restore-leg int8-block wire granularity
 MANIFEST_FORMAT = 3
 _SEP = "::"
 _FIELD_MARK = "__c__"
@@ -164,12 +178,34 @@ def _leaf_key(path) -> str:
     return _SEP.join(str(k) for k in path)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _flatten(tree, device=None) -> Dict[str, Any]:
     """key -> leaf tensor; tensors stay where they are (no host gather),
-    arrays and scalars go to `device` (default CUDA)."""
-    return {_leaf_key(path): leaf if isinstance(leaf, torch.Tensor)
-            else as_tensor(np.asarray(leaf), device)
+    DTensors are gathered whole (every rank joins), arrays and scalars go
+    to `device` (default CUDA)."""
+    def one(leaf):
+        if _is_dtensor(leaf):
+            return leaf.full_tensor()
+        if isinstance(leaf, torch.Tensor):
+            return leaf
+        return as_tensor(np.asarray(leaf), device)
+    return {_leaf_key(path): one(leaf)
             for path, leaf in _leaves_with_path(tree)}
+
+
+def _mesh_ranks(tree) -> Tuple[int, bool]:
+    """(this rank, whether the tree has DTensor leaves under a process
+    group of more than one rank)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, False
+    on_mesh = any(_is_dtensor(x) for _, x in _leaves_with_path(tree))
+    return dist.get_rank(), on_mesh and dist.get_world_size() > 1
 
 
 # ---------------------------------------------------------------------------
@@ -366,14 +402,24 @@ def save_checkpoint(ckpt_dir: str, step: int, tree,
     policy = policy or CheckpointPolicy()
     if writer is None and background:
         writer = default_writer()
-    os.makedirs(ckpt_dir, exist_ok=True)
-    plans = _encode_tree(_flatten(tree, device), policy, int(nshards),
-                         snapshot=writer is not None)
-    if writer is not None:
-        writer.submit(_write_step, ckpt_dir, step, plans, policy.codec,
-                      int(nshards))
-        return writer
-    return _write_step(ckpt_dir, step, plans, policy.codec, int(nshards))
+    rank, multi = _mesh_ranks(tree)
+    flat = _flatten(tree, device)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if rank == 0:                     # the single controller writes
+        os.makedirs(ckpt_dir, exist_ok=True)
+        plans = _encode_tree(flat, policy, int(nshards),
+                             snapshot=writer is not None)
+        if writer is not None:
+            writer.submit(_write_step, ckpt_dir, step, plans, policy.codec,
+                          int(nshards))
+        else:
+            final = _write_step(ckpt_dir, step, plans, policy.codec,
+                                int(nshards))
+    del flat
+    if multi:
+        import torch.distributed as dist
+        dist.barrier()
+    return writer if writer is not None else final
 
 
 def available_steps(ckpt_dir: str) -> List[int]:
@@ -442,8 +488,57 @@ def _assemble_v3(key: str, entry, shard_files, verify: bool, device):
                      dim=int(entry["axis"]))
 
 
+def _lossless_host_view(c: codecs.Container) -> np.ndarray:
+    """The raw values of a packed lossless container, staying on the host
+    (the bf16 storage bitcast undone)."""
+    arr = np.asarray(c.payload["data"])
+    want = np.dtype(c.header.dtype) if c.header.dtype != "bfloat16" \
+        else None
+    if want is None:                  # bf16: stored as its 16-bit pattern
+        bits = arr.view(np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(c.header.shape)
+    if arr.dtype != want and arr.dtype.itemsize == want.itemsize:
+        arr = arr.view(want)
+    return arr.reshape(c.header.shape)
+
+
+def _recodable(got, codec_name: str) -> bool:
+    """A raw (lossless-stored) float leaf big enough for the restore-leg
+    wire."""
+    if not isinstance(got, codecs.Container) or codec_name != "lossless":
+        return False
+    dt = got.header.dtype
+    floating = dt == "bfloat16" or np.dtype(dt).kind == "f"
+    shape = tuple(got.header.shape)
+    return floating and bool(shape) and int(np.prod(shape)) >= CUSZ_MIN_SIZE
+
+
+def _wire_recode(raw: np.ndarray, wire_name: str):
+    """Re-encode a raw leaf over the blockwise wire codec for the move to
+    the device (the armed `use_restore_compress` leg), quantized with
+    host numpy so that only codes and scales cross: the reference's
+    payload and header layout, which the registry codec decodes.  Returns
+    (codec, container, n_valid); the decode slices the edge padding
+    off."""
+    wire = codecs.get_block_codec(wire_name, axis=0, block=WIRE_BLOCK)
+    flat = np.asarray(raw, np.float32).reshape(-1)
+    pad = (-flat.size) % WIRE_BLOCK
+    if pad:
+        flat = np.pad(flat, (0, pad), mode="edge")
+    xb = flat.reshape(-1, WIRE_BLOCK)
+    scale = np.maximum(np.abs(xb).max(axis=1, keepdims=True) / 127.0,
+                       1e-30).astype(np.float32)
+    q = np.clip(np.rint(xb / scale), -127, 127).astype(np.int8)
+    cont = codecs.Container(
+        codecs.make_header(wire.name, wire.version, flat,
+                           axis=0, block=WIRE_BLOCK),
+        {"q": torch.from_numpy(q.reshape(-1)),
+         "scale": torch.from_numpy(scale.reshape(-1))})
+    return wire, cont, flat.size - pad
+
+
 def _load_step(d: str, step: int, template, device: torch.device,
-               kernel_impl: Optional[str], verify: bool):
+               kernel_impl: Optional[str], verify: bool, shardings=None):
     """Load one specific step dir; returns ``(tree, stats)``.  Raises one
     of `_CORRUPTION_ERRORS` when the bytes are damaged (the caller's
     quarantine loop handles those) or ValueError for format-gate
@@ -473,9 +568,13 @@ def _load_step(d: str, step: int, template, device: torch.device,
             file_cache["v2"] = np.load(os.path.join(d, "arrays.npz"))
         return file_cache["v2"]
 
+    from repro_torch.dist import context as dist_ctx
+
     stats = {"step": step, "format": fmt,
              "saved_nshards": int(manifest.get("nshards", 1)),
-             "leaves": 0, "wire_leaves": 0, "wire_bytes": 0, "raw_bytes": 0}
+             "leaves": 0, "wire_leaves": 0, "recoded_leaves": 0,
+             "wire_bytes": 0, "raw_bytes": 0}
+    wire_name = dist_ctx.restore_codec()
 
     def assemble(key, entry):
         if fmt == 2:
@@ -487,10 +586,22 @@ def _load_step(d: str, step: int, template, device: torch.device,
             return cont
         return _assemble_v3(key, entry, shard_files, verify, device)
 
-    def place(key, entry, leaf):
+    def place(key, entry, leaf, sharding):
+        got = restore(key, entry, leaf)
+        return sharding.place(got) if sharding is not None else got
+
+    def restore(key, entry, leaf):
         got = assemble(key, entry)
         stats["leaves"] += 1
         stats["raw_bytes"] += _nbytes(leaf)
+        if wire_name is not None and _recodable(got, entry["codec"]):
+            # the restore-leg wire: codes and scales cross, not raw values
+            wire, cont, n = _wire_recode(_lossless_host_view(got), wire_name)
+            stats["recoded_leaves"] += 1
+            stats["wire_leaves"] += 1
+            stats["wire_bytes"] += cont.nbytes
+            out = wire.decode(cont, device=device)[:n]
+            return out.to(leaf.dtype).reshape(leaf.shape)
         if isinstance(got, codecs.Container):
             # the stored container moves to the device and decodes there
             kw = {"kernel_impl": kernel_impl} \
@@ -501,21 +612,28 @@ def _load_step(d: str, step: int, template, device: torch.device,
             got = codecs.decode(got, device=device, **kw)
         return got.to(device=device, dtype=leaf.dtype).reshape(leaf.shape)
 
+    flat_sh = ([sh for _, sh in _leaves_with_path(shardings)]
+               if shardings is not None else None)
     out = [place(_leaf_key(path), manifest["tensors"][_leaf_key(path)],
-                 leaf) for path, leaf in _leaves_with_path(template)]
+                 leaf, flat_sh[i] if flat_sh is not None else None)
+           for i, (path, leaf) in enumerate(_leaves_with_path(template))]
     return _rebuild(template, iter(out)), stats
 
 
 def load_checkpoint(ckpt_dir: str, template, step: Optional[int] = None,
                     device: Optional[str] = None,
                     kernel_impl: Optional[str] = None,
-                    verify: bool = True, quarantine: bool = True):
+                    verify: bool = True, quarantine: bool = True,
+                    shardings=None):
     """Restore the step `step` (default: the newest) into `template`'s
     structure: a tree of tensors that gives each leaf's shape and dtype.
     Returns ``(tree, step)``.
 
     The stored containers move to `device` (default CUDA; without CUDA
     the caller must pass ``device="cpu"``) and decode there.
+    `shardings` (a `dist.sharding.NamedSharding` tree shaped like
+    `template`) places every leaf on its mesh instead, on the mesh's
+    device: the elastic restore.
     `kernel_impl` configures the staged codecs' kernel dispatch.
 
     ``verify`` (default on) checks every stored container payload
@@ -525,6 +643,15 @@ def load_checkpoint(ckpt_dir: str, template, step: Optional[int] = None,
     older good step, and the per-step reports land in
     ``LAST_RESTORE_STATS["quarantine"]``.  With ``quarantine=False``
     corruption raises `CheckpointCorruptionError` immediately."""
+    if shardings is not None:
+        import torch.distributed as dist
+
+        from repro_torch.tree import leaves
+        first = next(iter(leaves(shardings)), None)
+        if first is not None:
+            device = first.mesh.device_type
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()            # rank 0's writes are complete
     dev = input_device(None, device)
     candidates = available_steps(ckpt_dir)
     if step is not None:
@@ -538,7 +665,7 @@ def load_checkpoint(ckpt_dir: str, template, step: Optional[int] = None,
         d = os.path.join(ckpt_dir, f"step_{s:08d}")
         try:
             tree, stats = _load_step(d, s, template, dev, kernel_impl,
-                                     verify)
+                                     verify, shardings)
         except _CORRUPTION_ERRORS as e:
             report = {"step": int(s), "dir": d,
                       "error_type": type(e).__name__, "error": str(e)}

@@ -80,7 +80,7 @@ def decode_planes_cuda(planes: torch.Tensor, nbins: int) -> torch.Tensor:
 def encode_planes(codes2: torch.Tensor, nbins: int,
                   impl: Optional[str] = None) -> torch.Tensor:
     """Fused zigzag + bitshuffle: [nc, chunk] codes -> [nc, P, W] planes."""
-    impl = dispatch.resolve(ENCODE.name, codes2.device, impl)
+    impl = dispatch.resolve(ENCODE.name, codes2, impl)
     if impl == "cuda":
         return encode_planes_cuda(codes2, nbins)
     return ref.encode_planes_ref(codes2, nbins)
@@ -89,7 +89,7 @@ def encode_planes(codes2: torch.Tensor, nbins: int,
 def decode_planes(planes: torch.Tensor, nbins: int,
                   impl: Optional[str] = None) -> torch.Tensor:
     """Inverse bitshuffle: [nc, P, W] planes -> [nc, 32·W] codes."""
-    impl = dispatch.resolve(DECODE.name, planes.device, impl)
+    impl = dispatch.resolve(DECODE.name, planes, impl)
     if impl == "cuda":
         return decode_planes_cuda(planes, nbins)
     return ref.decode_planes_ref(planes, nbins)

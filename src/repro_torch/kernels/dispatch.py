@@ -109,10 +109,19 @@ def current_policy() -> Optional[str]:
 # Resolution
 # ---------------------------------------------------------------------------
 
-def resolve(kernel: str, device: torch.device,
-            impl: Optional[str] = None) -> str:
+def resolve(kernel: str, where, impl: Optional[str] = None) -> str:
     """Resolve a kernel name (+ optional request) to "torch" or "cuda" for
-    tensors on `device`.  A "cuda" request for a CPU tensor raises."""
+    the tensor `where` (or tensors on the device `where`).  A "cuda"
+    request for a CPU tensor raises, and so does a DTensor: a kernel takes
+    raw pointers, and a DTensor's are its local shard's, so encoding one
+    would code a shard as if it were the whole tensor (gather it first)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(where, DTensor):
+        raise TypeError(f"kernel {kernel!r} takes plain tensors; got a "
+                        f"DTensor on {where.device_mesh} (gather it with "
+                        f"full_tensor() first)")
+    device = where.device if isinstance(where, torch.Tensor) else where
     if kernel not in _REGISTRY:
         raise KeyError(f"kernel {kernel!r} not registered; known: "
                        f"{sorted(_REGISTRY)}")

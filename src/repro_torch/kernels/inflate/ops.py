@@ -93,7 +93,7 @@ def inflate(words: torch.Tensor, n_valid: torch.Tensor,
                           max_len_static)
     if sub_size is None:
         sub_size = words.shape[1] // gaps.shape[1]
-    impl = dispatch.resolve(KERNEL.name, words.device, impl)
+    impl = dispatch.resolve(KERNEL.name, words, impl)
     if impl == "cuda":
         return inflate_cuda(words, n_valid, gaps, table, sub_size)
     return ref.inflate_gap_ref(words, n_valid, gaps, table, sub_size)

@@ -64,7 +64,7 @@ def residual_rows(pe: torch.Tensor, odd: torch.Tensor,
     """Encode direction of one interpolation level: residual = odd −
     p(even).  `pe` is the padded even rows [R, me+3], `odd` the odd rows
     [R, mo]."""
-    impl = dispatch.resolve(PREDICT.name, pe.device, impl)
+    impl = dispatch.resolve(PREDICT.name, pe, impl)
     if impl == "cuda":
         return residual_rows_cuda(pe, odd)
     return ref.residual_rows_ref(pe, odd)
@@ -73,7 +73,7 @@ def residual_rows(pe: torch.Tensor, odd: torch.Tensor,
 def odd_rows(pe: torch.Tensor, resid: torch.Tensor,
              impl: Optional[str] = None) -> torch.Tensor:
     """Decode direction: odd = residual + p(even)."""
-    impl = dispatch.resolve(RECONSTRUCT.name, pe.device, impl)
+    impl = dispatch.resolve(RECONSTRUCT.name, pe, impl)
     if impl == "cuda":
         return odd_rows_cuda(pe, resid)
     return ref.odd_rows_ref(pe, resid)

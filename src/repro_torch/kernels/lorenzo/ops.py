@@ -93,7 +93,7 @@ def dualquant_blocks(xb: torch.Tensor, eb: float, nbins: int,
                      impl: Optional[str] = None):
     """Fused PREQUANT + ℓ-delta + POSTQUANT on blocked input.
     Returns (codes, delta), both int32 shaped like xb."""
-    impl = dispatch.resolve(DUALQUANT.name, xb.device, impl)
+    impl = dispatch.resolve(DUALQUANT.name, xb, impl)
     if impl == "cuda":
         return dualquant_blocks_cuda(xb, eb, nbins)
     return ref.dualquant_blocks_ref(xb, eb, nbins)
@@ -102,7 +102,7 @@ def dualquant_blocks(xb: torch.Tensor, eb: float, nbins: int,
 def reverse_blocks(delta: torch.Tensor, eb: float,
                    impl: Optional[str] = None) -> torch.Tensor:
     """Per-block cumsum inverse + dequant.  Returns blocked float32."""
-    impl = dispatch.resolve(REVERSE.name, delta.device, impl)
+    impl = dispatch.resolve(REVERSE.name, delta, impl)
     if impl == "cuda":
         return reverse_blocks_cuda(delta, eb)
     return ref.reverse_blocks_ref(delta, eb)

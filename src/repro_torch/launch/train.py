@@ -1,5 +1,4 @@
-"""Training launcher on one device.  Runs on the card unless
-``--device cpu`` is given.
+"""Training launcher.  Runs on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --reduced --device cpu --steps 3 --batch 4 --seq 32
@@ -11,14 +10,23 @@
         --checkpoint-dir /tmp/ck --checkpoint-every 2 \
         --chaos 'writer:failures=1' --mitigate
 
-It is the reference launcher's ``--mesh host`` run: one device with the
-production axis names, where no parameter is FSDP-sharded and there is
-one pod.  So, as there, ``--weight-compress`` quantizes no leaf (the
-weight-gather hook compresses only FSDP-sharded leaves) and
-``--grad-compress`` takes the plain branch (it needs more than one pod):
-the losses are the uncompressed run's.  The weights are random (seed 0),
-f32, computed in bf16; tokens come from the synthetic bigram stream.
-``--mesh single|multi`` and ``--lower-only`` need the port's meshes.
+    # the production meshes, one rank per card
+    torchrun --nproc-per-node 8 --nnodes 32 ... \
+        -m repro_torch.launch.train --arch qwen3-32b --mesh single
+
+``--mesh host`` (the default) starts a one-rank process group (NCCL on
+the card, gloo with ``--device cpu``) and installs the reference's 1x1
+``("data", "model")`` mesh and its param specs: parameters, moments and
+batches are DTensors and the step is the train step's mesh branch.  On
+that layout no parameter is FSDP-sharded and there is one pod, so, as in
+the reference, ``--weight-compress`` quantizes no leaf (the weight-gather
+hook compresses only FSDP-sharded leaves) and ``--grad-compress`` takes
+the plain branch (it needs more than one pod): the losses are the
+uncompressed run's.  ``--mesh single|multi`` builds the 16x16 or 2x16x16
+production mesh from ``torchrun``'s environment and raises unless the
+group has 256 or 512 ranks.  ``--lower-only`` (compile without running)
+waits for the port's dry-run.  The weights are random (seed 0), f32,
+computed in bf16; tokens come from the synthetic bigram stream.
 """
 from __future__ import annotations
 
@@ -30,13 +38,17 @@ import torch
 from repro_torch import configs
 from repro_torch.data import pipeline
 from repro_torch.dist import chaos, fault
+from repro_torch.dist import sharding as SH
+from repro_torch.dist.context import use_mesh, use_param_specs
+from repro_torch.launch import mesh as LM
 from repro_torch.io import checkpoint as ckpt_io
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import TrainConfig, make_train_step
 from repro_torch.train.trainer import state_template
 
-_MESH_TODO = "the port's device meshes (ROADMAP §1.3)"
+_DRYRUN_TODO = ("--lower-only needs launch/dryrun.py, the port's next "
+                "slice (ROADMAP §1.3)")
 
 
 def main(argv=None):
@@ -73,35 +85,46 @@ def main(argv=None):
                          "exclude flagged hosts, skip NaN steps)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh} needs {_MESH_TODO}")
     if args.lower_only:
-        raise NotImplementedError(f"--lower-only needs {_MESH_TODO}")
+        raise NotImplementedError(_DRYRUN_TODO)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
                          "CPU")
+    with LM.process_group(args.device):
+        if args.mesh == "host":
+            mesh = LM.make_host_mesh(args.device)
+        else:
+            mesh = LM.make_production_mesh(multi_pod=args.mesh == "multi",
+                                           device_type=args.device)
+        _run(args, mesh)
+
+
+def _run(args, mesh):
     dev = torch.device(args.device)
     cfg = configs.reduced(args.arch) if args.reduced else configs.get(args.arch)
-    npods = 1                        # the host layout has no pod axis
+    npods = SH.mesh_shape(mesh).get("pod", 1)
     tcfg = TrainConfig(
         microbatches=args.microbatches, grad_compress=args.grad_compress,
-        # on the host layout no leaf is FSDP-sharded, so the gather hook
-        # compresses nothing (see the module docstring)
-        weight_compress="none", npods=npods,
+        weight_compress=args.weight_compress, npods=npods,
         adamw=adamw.AdamWConfig(lr=args.lr,
                                 quantized_moments=args.quantized_moments))
+    podded = tcfg.grad_compress != "none" and npods > 1
     step_fn = make_train_step(cfg, tcfg)
+    template = state_template(cfg, tcfg)
+    pspecs = SH.param_specs(template[0], mesh)
+    shardings = SH.param_shardings(template, mesh)
 
     start = 0
     if args.checkpoint_dir and \
             ckpt_io.latest_step(args.checkpoint_dir) is not None:
         (params, opt), start = ckpt_io.load_checkpoint(
-            args.checkpoint_dir, state_template(cfg, tcfg), device=dev)
+            args.checkpoint_dir, template, shardings=shardings)
         start += 1
         print(f"resumed from step {start}")
     else:
         params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
                                device=dev)
+        params = SH.place(params, shardings[0])
         opt = adamw.init(params, tcfg.adamw)
     writer = None if args.checkpoint_sync or not args.checkpoint_dir \
         else ckpt_io.AsyncWriter(max_pending=1, retries=2)
@@ -112,10 +135,11 @@ def main(argv=None):
                   chaos_cfg.nhosts if chaos_cfg is not None else nhosts)
               if args.mitigate else None)
     try:
-        with chaos.use_chaos(chaos_cfg) as monkey:
+        with chaos.use_chaos(chaos_cfg) as monkey, use_mesh(mesh), \
+                use_param_specs(pspecs):
             for step in range(start, args.steps):
-                batch = torch.from_numpy(pipeline.host_batch(
-                    cfg.vocab, args.batch, args.seq, step)).to(dev)
+                batch = pipeline.global_batch(mesh, cfg.vocab, args.batch,
+                                              args.seq, step, podded=podded)
                 t0 = time.perf_counter()
                 loss, params, opt = step_fn(params, opt, batch)
                 loss = float(loss)               # the step-time fence

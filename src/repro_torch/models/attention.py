@@ -122,12 +122,37 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def _flash_qblocked(q, k, v, causal):
     """Outer loop over query blocks keeps the online-softmax state small
     for very long prefill (32k+).  A last partial block is simply
-    shorter (the reference pads it and slices the padding off)."""
+    shorter (the reference pads it and slices the padding off).  On a
+    mesh (DTensor q, k, v) each rank attends its own rows and heads."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _mesh_flash(q, k, v, causal)
     Sq = q.shape[1]
     if Sq <= Q_BLOCK:
         return _flash(q, k, v, causal)
     return torch.cat([_flash(q[:, i:i + Q_BLOCK], k, v, causal, q_offset=i)
                       for i in range(0, Sq, Q_BLOCK)], dim=1)
+
+
+def _mesh_flash(q, k, v, causal):
+    """Attention of DTensors, rank by rank: batch rows over the
+    data-parallel axes, query and key heads over "model" when both head
+    counts divide it (else whole on every rank), so every rank holds
+    whole (row, key-head group) problems and the blocked loop runs on its
+    local shards, exactly as off-mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.context import constrain, current_mesh
+    from repro_torch.dist.sharding import mesh_shape
+
+    msz = mesh_shape(current_mesh()).get("model", 1)
+    heads = "model" if q.shape[2] % msz == 0 and k.shape[2] % msz == 0 \
+        else None
+    q, k, v = (constrain(t, "dp", None, heads, None) for t in (q, k, v))
+    out = _flash_qblocked(q.to_local(), k.to_local(), v.to_local(), causal)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -152,16 +177,114 @@ def _qkv(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
 
 
 def _out_proj(p, o: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(o, DTensor):
+        return _mesh_out_proj(o, p["wo"].to(o.dtype))
     return torch.einsum("bshe,hed->bsd", o, p["wo"].to(o.dtype))
+
+
+def _mesh_out_proj(o, wo):
+    """The output projection of DTensors: each rank contracts its own rows
+    and heads with the local einsum (the off-mesh arithmetic), and the
+    per-rank partial sums over head groups add across "model".  DTensor's
+    own einsum would flatten a head dim it cannot flatten sharded."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.dist.context import (constrain, current_mesh,
+                                          sum_over_group)
+    from repro_torch.dist.sharding import P, mesh_shape, placements
+
+    mesh = current_mesh()
+    msz = mesh_shape(mesh).get("model", 1)
+    heads = "model" if o.shape[2] % msz == 0 and msz > 1 else None
+    o = constrain(o, "dp", None, heads, None)
+    wo = wo.redistribute(mesh, placements(P(heads), mesh, wo.dim()))
+    rows = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+            else Replicate() for pl in o.placements]
+    # wo's gradient from this rank's rows: partial over the row axes
+    wo_l = wo.to_local(grad_placements=[
+        Partial() if isinstance(r, Shard) else pl
+        for r, pl in zip(rows, wo.placements)])
+    o_l = o.to_local()
+    if heads is None:
+        y = torch.einsum("bshe,hed->bsd", o_l, wo_l)
+    else:
+        # partial sums in f32 (exact products of the operands), summed
+        # across the head groups, rounded to the compute dtype once
+        y = torch.einsum("bshe,hed->bsd", o_l.float(), wo_l.float())
+        y = sum_over_group(y, mesh.get_group("model")).to(o.dtype)
+    return DTensor.from_local(y, mesh, rows, run_check=False)
 
 
 def gqa_forward(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Training / prefill.  x: [B,S,D].  Returns (out, (k, v)) with k/v in
     cache layout [B, S, KV, hd]."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _mesh_gqa_forward(p, cfg, x, pos)
     q, k, v = _qkv(p, cfg, x, pos)
     o = _flash_qblocked(q, k, v, causal=True)
     return _out_proj(p, o), (k, v)
+
+
+def _mesh_gqa_forward(p, cfg: ModelConfig, x, pos):
+    """The GQA block of a DTensor x, rank by rank (the column- then
+    row-parallel layout): each rank takes its own rows of x and, when both
+    head counts divide "model", its own query and key heads of the
+    weights; projects, attends and projects back with the off-mesh code on
+    local tensors; the output's partial sums over head groups add across
+    "model".  At one rank the arithmetic is the off-mesh one, kernel for
+    kernel.  Returns the output placed by rows and K / V placed by rows
+    and heads."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.dist.context import constrain, current_mesh, \
+        sum_over_group
+    from repro_torch.dist.sharding import _model_dim
+
+    mesh = current_mesh()
+    names = mesh.mesh_dim_names
+    msz = dict(zip(names, mesh.shape)).get("model", 1)
+    split = msz > 1 and cfg.n_heads % msz == 0 and cfg.n_kv_heads % msz == 0
+    x = constrain(x, "dp", None, None)
+    rows = [Shard(0) if isinstance(pl, Shard) else Replicate()
+            for pl in x.placements]
+    on_model = [split and n == "model" for n in names]
+
+    def local(name, t):
+        """This rank's heads of one weight leaf (its head dim is the one
+        the sharding rules put on "model"); its gradient from these rows
+        is a partial sum over the row axes."""
+        hd = _model_dim([name], t.dim())
+        pl = [Shard(hd) if m and hd is not None else Replicate()
+              for m in on_model]
+        t = t.redistribute(mesh, pl)
+        return t.to_local(grad_placements=[
+            Partial() if isinstance(r, Shard) else q for r, q in zip(rows,
+                                                                     pl)])
+
+    w = {k: local(k, v) for k, v in p.items()}
+    # x's gradient from this rank's heads: partial over "model"
+    xl = x.to_local(grad_placements=[Partial() if m else r
+                                     for m, r in zip(on_model, rows)])
+    pl_ = pos.to_local() if isinstance(pos, DTensor) else pos[:xl.shape[0]]
+    q, k, v = _qkv(w, cfg, xl, pl_)
+    o = _flash_qblocked(q, k, v, causal=True)
+    if split:
+        # partial sums in f32 (exact products of the operands), summed
+        # across the head groups, rounded to the compute dtype once
+        y = torch.einsum("bshe,hed->bsd", o.float(), w["wo"].to(o.dtype)
+                         .float())
+        y = sum_over_group(y, mesh.get_group("model")).to(o.dtype)
+    else:
+        y = _out_proj(w, o)
+    by_heads = [Shard(2) if m else r for m, r in zip(on_model, rows)]
+    return (DTensor.from_local(y, mesh, rows, run_check=False),
+            tuple(DTensor.from_local(t, mesh, by_heads, run_check=False)
+                  for t in (k, v)))
 
 
 def gqa_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_k, cache_v,

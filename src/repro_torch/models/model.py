@@ -8,6 +8,15 @@ periods (leading ``[n_periods]`` axis), and the reference's ``lax.scan``
 over periods is a Python loop over that index.  Decode caches (GQA K/V,
 MLA latents, Mamba states) are stacked the same way and are written in
 place.
+
+On a mesh (``dist.context.use_mesh``) `forward` takes DTensors (params
+placed by ``sharding.param_shardings``, tokens by the batch spec) and
+runs under ``implicit_replication``: the tensors it makes from shapes
+alone (positions, masks, RoPE tables, zeros) are the same on every rank,
+so taking them as replicated is exact.  With the weight-gather hook
+armed, each period's FSDP-sharded weights are gathered as int8 inside the
+period loop (and again in the backward's recompute), as the reference
+does inside its scan.
 """
 from __future__ import annotations
 
@@ -20,7 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.codecs.base import input_device
 from repro_torch.core import kvcache as KVC
-from repro_torch.dist.context import constrain, weight_gather_info
+from repro_torch.core import weights as WQ
+from repro_torch.dist.context import (constrain, mesh_compute,
+                                      weight_gather_info)
 from repro_torch.tree import tree_map
 
 from . import attention as attn
@@ -195,13 +206,69 @@ def _unbind_periods(layer):
     return list(layer.unbind(0))
 
 
-def _period_forward(period_params, cfg: ModelConfig, x, pos):
+def _gathered(period_params, wg):
+    """One period's per-position parameter trees with the int8 weight
+    gather applied when the hook is armed on a mesh (`wg` is
+    ``weight_gather_info()``)."""
+    if wg is None:
+        return period_params
+    specs_tuple, mesh = wg
+    return tuple(WQ.gather_dequant_tree(pp, sp, mesh)
+                 for pp, sp in zip(period_params, specs_tuple))
+
+
+def _period_forward(period_params, cfg: ModelConfig, x, pos, wg=None):
     """One period of every pattern position from its per-position
     parameter trees, without caches (the unit the training forward
-    recomputes)."""
-    for kind, p in zip(cfg.pattern, period_params):
-        x, _ = _position_forward(p, cfg, kind, x, pos)
-    return constrain(x, "dp", None, None)
+    recomputes, the weight gather included)."""
+    with mesh_compute():             # also when the backward recomputes
+        for kind, p in zip(cfg.pattern, _gathered(period_params, wg)):
+            x, _ = _position_forward(p, cfg, kind, x, pos)
+        return constrain(x, "dp", None, None)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _mesh_embed(embed, tokens):
+    """``embed[tokens]`` of DTensors, rank by rank: each rank looks its
+    own rows up in its own slice of the vocabulary (tokens outside it
+    give zeros) and the slices' rows add across the axes that split the
+    vocabulary.  The table is first gathered over any axis that splits
+    the rows (FSDP).  At one rank it is the plain lookup."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.dist.context import sum_over_group
+
+    mesh = embed.device_mesh
+    tokens = constrain(tokens, "dp", None)
+    rows = tokens.placements
+    split_rows = [isinstance(r, Shard) for r in rows]
+    pl = [Replicate() if sr else p for sr, p in zip(split_rows, embed.placements)]
+    if list(embed.placements) != pl:
+        embed = embed.redistribute(mesh, pl)
+    # its gradient from these rows: partial over the row axes
+    table = embed.to_local(grad_placements=[
+        Partial() if sr else p for sr, p in zip(split_rows, pl)])
+    vocab_dims = [i for i, p in enumerate(pl)
+                  if isinstance(p, Shard) and p.dim == 0]
+    t = tokens.to_local()
+    n = table.shape[0]
+    offset = 0
+    for i in vocab_dims:
+        offset = offset * mesh.shape[i] + mesh.get_coordinate()[i]
+    offset *= n
+    inside = (t >= offset) & (t < offset + n)
+    x = torch.where(inside[..., None], table[(t - offset).clamp(0, n - 1)],
+                    torch.zeros((), dtype=table.dtype, device=t.device))
+    for i in vocab_dims:
+        x = sum_over_group(x, mesh.get_group(i))
+    out = [Shard(0) if sr else (Shard(2) if isinstance(p, Shard)
+                                and p.dim == 1 else Replicate())
+           for sr, p in zip(split_rows, pl)]
+    return DTensor.from_local(x, mesh, out, run_check=False)
 
 
 def _stack_caches(per_period):
@@ -228,12 +295,17 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     MambaState of [n_periods, B, ...].  With autograd recording and no
     caches collected, each period runs under activation checkpointing:
     the values are the same, the backward recomputes the period."""
-    if weight_gather_info() is not None:
-        raise NotImplementedError("weight-gather compression needs a mesh: "
-                                  "the distribution slice of the port "
-                                  "(ROADMAP §1.3)")
+    with mesh_compute():
+        return _forward(params, cfg, tokens, extra, compute_dtype,
+                        collect_caches, return_hidden)
+
+
+def _forward(params, cfg: ModelConfig, tokens, extra, compute_dtype,
+             collect_caches: bool, return_hidden: bool):
+    wg = weight_gather_info()
     B, S = tokens.shape
-    x = params["embed"][tokens].to(compute_dtype)
+    x = (_mesh_embed(params["embed"], tokens) if _is_dtensor(tokens)
+         else params["embed"][tokens]).to(compute_dtype)
     if cfg.add_frame_embeds and extra and "frame_embeds" in extra:
         x = x + extra["frame_embeds"].to(compute_dtype)
     if cfg.n_prepend_embeds and extra and "patch_embeds" in extra:
@@ -253,9 +325,10 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     remat = torch.is_grad_enabled() and not collect_caches
     for period_params in per_period:
         if remat:
-            x = checkpoint(_period_forward, period_params, cfg, x, pos,
+            x = checkpoint(_period_forward, period_params, cfg, x, pos, wg,
                            use_reentrant=False)
             continue
+        period_params = _gathered(period_params, wg)
         for i, (kind, p) in enumerate(zip(cfg.pattern, period_params)):
             x, c = _position_forward(p, cfg, kind, x, pos)
             if collect_caches:

@@ -80,6 +80,39 @@ def _dequantize(qt, shape) -> torch.Tensor:
     return (xf * qt.scale[..., None]).reshape(shape)
 
 
+def _local(t):
+    """A DTensor's local shard (a view: in-place writes land in the
+    DTensor); any other tensor or QTensor as it is.  The update is
+    elementwise and every leaf of a parameter (grad, moments) shares its
+    placements, so each rank updates its own shard."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, QTensor):
+        return QTensor(_local(t.q), _local(t.scale))
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _zero_quantized(p):
+    """Zero int8 moments of `p`: on a DTensor, quantized shard by shard
+    and placed like `p` (its blocks along the last dim are the global
+    blocks only when the local last dim stays block-aligned)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(p, DTensor):
+        return _quantize(torch.zeros_like(p))
+    local = torch.zeros_like(p.to_local())
+    if _quantizable(p) and not _quantizable(local):
+        raise NotImplementedError(
+            f"int8 moments of a {tuple(p.shape)} leaf whose local shard "
+            f"{tuple(local.shape)} splits a {QBLOCK}-block")
+    qt = _quantize(local)
+    if not isinstance(qt, QTensor):
+        return DTensor.from_local(qt, p.device_mesh, p.placements,
+                                  run_check=False)
+    return QTensor(*(DTensor.from_local(t, p.device_mesh, p.placements,
+                                        run_check=False) for t in qt))
+
+
 def _device_of(tree) -> torch.device:
     first = leaves(tree)
     return first[0].device if first else torch.device("cpu")
@@ -89,8 +122,7 @@ def init(params, cfg: AdamWConfig) -> AdamWState:
     """Zero moments on each parameter's device (f32, or QTensors where the
     leaf is quantizable and `cfg.quantized_moments`)."""
     if cfg.quantized_moments:
-        def zero(p):
-            return _quantize(torch.zeros_like(p))
+        zero = _zero_quantized
     else:
         def zero(p):
             return torch.zeros_like(p, dtype=torch.float32)
@@ -135,7 +167,7 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig):
     written leaf by leaf (the reference's arithmetic), and each gradient
     leaf is dropped from `grads` once it is used.  Returns
     (params, AdamWState(count + 1, m, v)), the same trees."""
-    c = state.count + 1
+    c = _local(state.count) + 1       # a restored count may be placed
     cf = c.to(torch.float32)
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
                                      device=cf.device), cf)
@@ -145,7 +177,10 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig):
     flat_m = leaves_up_to(params, state.m)
     flat_v = leaves_up_to(params, state.v)
     for g, m, v, p in zip(pop_leaves(grads), flat_m, flat_v, flat_p):
-        _leaf_(g, m, v, p, cfg, b1c.to(p.device), b2c.to(p.device))
+        if getattr(g, "placements", None) != getattr(p, "placements", None):
+            g = g.redistribute(p.device_mesh, p.placements)
+        _leaf_(_local(g), _local(m), _local(v), _local(p), cfg,
+               b1c.to(p.device), b2c.to(p.device))
         del g
     return params, AdamWState(c, state.m, state.v)
 

@@ -16,8 +16,16 @@ compressed KV cache, split into disaggregation-ready phases:
 
 ``generate`` composes 1+4.  GQA K/V and MLA latents cross the handoff
 as per-slab wire containers, Mamba/SSD state as lossless whole tensors.
-The port runs on one device: a mesh is the distribution slice's work
-(ROADMAP §1.3) and raises here.
+
+Under a mesh (``dist.context.use_mesh``) prefill runs the DTensor forward
+(params placed by ``sharding.param_shardings``, the prompt by
+``resolve_sharding(mesh, shape, "data")``) and keeps the caches on the
+mesh; the handoff gathers each cache tensor and encodes it whole (the
+containers are what crosses to the other mesh); ``reshard_caches`` places
+the arriving caches on the decode mesh with ``(None, "data", "model")``;
+and ``decode_tokens`` runs each rank's own rows with the weights gathered
+once per call (a data-parallel decode) and returns the tokens placed by
+rows.
 
 Sampling: greedy (``temperature=0``) is the reference's, token for token.
 Temperature sampling draws from ``softmax(logits / T)`` with a
@@ -66,7 +74,11 @@ def prefill(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
     Returns (last_logits [B,V], DecodeCaches, prompt_len)."""
     params = M.cast_params(params, scfg.compute_dtype)
     dev = params["embed"].device
+    mesh = dist_ctx.current_mesh()
     tokens = torch.as_tensor(tokens, device=dev)
+    if mesh is not None and not _is_dtensor(tokens):
+        tokens = dist_ctx.resolve_sharding(mesh, tokens.shape,
+                                           "data").place(tokens)
     logits, caches = M.forward(params, cfg, tokens, extra,
                                compute_dtype=scfg.compute_dtype,
                                collect_caches=True)
@@ -80,7 +92,10 @@ def prefill(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
     def extend(x):
         """Pad the seq axis to s_max; under compressed_kv the full buffer
         becomes the registry codec's payload, kept as the in-memory
-        QuantKV format the decode step indexes directly."""
+        QuantKV format the decode step indexes directly.  A DTensor is
+        padded and encoded shard by shard (its seq axis kept whole)."""
+        if _is_dtensor(x):
+            return _seq_local(extend, x)
         ext = torch.zeros(x.shape[:2] + (scfg.s_max - S_total,)
                           + x.shape[3:], dtype=x.dtype, device=x.device)
         full = torch.cat([x, ext], dim=HANDOFF_SEQ_AXIS)
@@ -100,6 +115,47 @@ def prefill(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
         else:
             entries.append((extend(c[0]), extend(c[1])))
     return logits[:, -1, :], M.DecodeCaches(tuple(entries)), S_total
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _seq_local(fn, x):
+    """`fn` on the local shard of the DTensor `x` with its seq axis whole
+    (gathered first if it is split); the tensor, or each QuantKV field, it
+    returns is placed as x is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == HANDOFF_SEQ_AXIS
+          else p for p in x.placements]
+    if list(x.placements) != pl:
+        x = x.redistribute(x.device_mesh, pl)
+    out = fn(x.to_local())
+
+    def wrap(t):
+        return DTensor.from_local(t, x.device_mesh, pl, run_check=False)
+    return KVC.QuantKV(*map(wrap, out)) if isinstance(out, KVC.QuantKV) \
+        else wrap(out)
+
+
+def _gather(x):
+    """A cache tensor (or QuantKV) whole on this rank: DTensors are
+    gathered, anything else passes."""
+    if isinstance(x, KVC.QuantKV):
+        return KVC.QuantKV(*map(_gather, x))
+    return x.full_tensor() if _is_dtensor(x) else x
+
+
+def _rows_local(x, batch_dim: int):
+    """This rank's rows of the DTensor `x` (split along `batch_dim` over
+    the data-parallel axes, whole elsewhere) as a plain tensor."""
+    mesh = x.device_mesh
+    spec = [None] * x.dim()
+    spec[batch_dim] = "dp"
+    sh = dist_ctx.resolve_sharding(mesh, x.shape, *spec)
+    return x.redistribute(mesh, sh.placements(x.dim())).to_local()
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +200,13 @@ def decode_tokens(params, cfg: ModelConfig, scfg: ServeConfig,
                   generator: Optional[torch.Generator] = None):
     """Synchronized-batch decode loop from prefilled (or resharded)
     caches.  Works on a copy of `caches` (the step writes in place; the
-    caller's stay as they were).  Returns [B, n_new] int32."""
+    caller's stay as they were).  Returns [B, n_new] int32 (on a mesh a
+    DTensor placed by rows: each rank decodes its own rows, see the module
+    docstring)."""
+    mesh = dist_ctx.current_mesh()
+    if mesh is not None:
+        return _mesh_decode_tokens(mesh, params, cfg, scfg, last_logits,
+                                   caches, plen, n_new, generator)
     params = M.cast_params(params, scfg.compute_dtype)
     step_fn = get_serve_step(cfg, scfg)
     caches = M.clone_caches(caches)
@@ -155,6 +217,30 @@ def decode_tokens(params, cfg: ModelConfig, scfg: ServeConfig,
         logits, caches = step_fn(params, tok, caches, plen + i)
         tok = pick_token(logits[:, 0, :], generator, scfg)[:, None]
     return torch.stack(outs, dim=1)
+
+
+def _mesh_decode_tokens(mesh, params, cfg, scfg, last_logits, caches,
+                        plen, n_new, generator):
+    """`decode_tokens` on `mesh`: the weights gathered once, the caches
+    and logits cut to this rank's rows, the plain loop, the tokens placed
+    by rows."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    whole = tree_map(lambda t: t.full_tensor() if _is_dtensor(t) else t,
+                     M.cast_params(params, scfg.compute_dtype))
+    rows = M.DecodeCaches(tree_map(
+        lambda t: _rows_local(t, 1) if _is_dtensor(t) else t,
+        caches.entries))
+    logits = (_rows_local(last_logits, 0) if _is_dtensor(last_logits)
+              else last_logits)
+    with dist_ctx.use_mesh(None):
+        toks = decode_tokens(whole, cfg, scfg, logits, rows, plen, n_new,
+                             generator=generator)
+    sh = dist_ctx.resolve_sharding(mesh, (last_logits.shape[0], n_new),
+                                   "dp")
+    return DTensor.from_local(toks, mesh, sh.placements(2), run_check=False)
 
 
 def generate(params, cfg: ModelConfig, prompt, n_new: int,
@@ -223,6 +309,7 @@ def encode_handoff(caches: M.DecodeCaches, cfg: ModelConfig,
         return parts
 
     def ship(x):
+        x = _gather(x)
         n = x.q.numel() if isinstance(x, KVC.QuantKV) else x.numel()
         parts = KVC.kv_wire_encode(
             x, HANDOFF_SEQ_AXIS, wire=wire, nslabs=nslabs,
@@ -239,6 +326,7 @@ def encode_handoff(caches: M.DecodeCaches, cfg: ModelConfig,
     def ship_state(x):
         # recurrent state has no seq axis and stays lossless; its raw
         # baseline is its actual bytes, not the bf16 K/V equivalent
+        x = _gather(x)
         return account((lossless.pack(lossless.encode(x)),),
                        x.numel() * x.element_size())
 
@@ -258,19 +346,36 @@ def encode_handoff(caches: M.DecodeCaches, cfg: ModelConfig,
 
 def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
                    *, mesh=None, device=None) -> M.DecodeCaches:
-    """Phase 3: adopt the handoff Containers as decode caches on `device`
-    (default CUDA; a mesh is not supported yet).
+    """Phase 3: adopt the handoff Containers as decode caches under the
+    decode mesh (default: the current ``dist.context`` mesh), placed with
+    ``(None, "data", "model")`` (Mamba state ``(None, "data")``), or on
+    `device` without a mesh (default CUDA).
 
     int8-block wire + compressed decode target: the payload (q + block
     scales) IS the in-memory QuantKV format — it is concatenated in
     payload space and placed directly, with **no f32 round trip and no
     re-quantization**.  Any other combination decodes (and, for a
     compressed target, re-quantizes).  Updates ``LAST_RESHARD_STATS``."""
-    if mesh is not None or dist_ctx.current_mesh() is not None:
-        raise NotImplementedError(
-            "placing caches on a device mesh is the distribution slice of "
-            "the port (ROADMAP §1.3); pass mesh=None")
+    mesh = mesh if mesh is not None else dist_ctx.current_mesh()
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh, got "
+                            f"{type(mesh).__name__}")
+        if device is not None and torch.device(device).type \
+                != mesh.device_type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device_type}")
+        device = mesh.device_type
     dev = input_device(None, device)
+
+    def put(x, *spec):
+        if mesh is None:
+            return x
+        if isinstance(x, KVC.QuantKV):
+            return KVC.QuantKV(*(put(t, *spec) for t in x))
+        return dist_ctx.resolve_sharding(mesh, x.shape, *spec).place(x)
+
     # reset at call start (same contract as LAST_HANDOFF_STATS)
     LAST_RESHARD_STATS.clear()
     LAST_RESHARD_STATS.update({"tensors": 0, "adopted_quantkv": 0,
@@ -278,7 +383,11 @@ def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
     stats = LAST_RESHARD_STATS
 
     def arrive(parts):
-        """One cache tensor's wire containers -> its decode-side form."""
+        """One cache tensor's wire containers -> its decode-side form,
+        placed on the decode mesh."""
+        return put(restore(parts), None, "data", "model")
+
+    def restore(parts):
         stats["tensors"] += 1
         # a slab that failed wire-codec validation arrives as "lossless";
         # adoption/payload-concat need a homogeneous wire, so any mix
@@ -323,6 +432,7 @@ def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
             for parts in entry:
                 stats["tensors"] += 1
                 stats["decoded"] += 1
-                vals.append(codecs.decode(parts[0], device=dev))
+                vals.append(put(codecs.decode(parts[0], device=dev),
+                                None, "data"))
             entries.append(ssm_mod.MambaState(*vals))
     return M.DecodeCaches(tuple(entries))

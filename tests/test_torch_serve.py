@@ -385,12 +385,15 @@ def test_evict_hook_resolution(ref):
 
 
 def test_mesh_is_the_distribution_slice(model, ref, prefilled):
+    """Off-mesh the serve path has no mesh and `constrain` is the
+    identity; `reshard_caches(mesh=)` takes a DeviceMesh (the mesh runs
+    themselves are `tests/test_torch_spmd_reshard.py`)."""
     _, runs = prefilled
     _, rcaches, plen = runs[True]
     scfg, _ = model.scfgs(ref)
     h = TE.encode_handoff(_caches_to_port(ref, rcaches), model.tcfg, scfg,
                           plen=plen)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TE.reshard_caches(h, model.tcfg, scfg, mesh=object(), device="cpu")
     assert tctx.current_mesh() is None and tctx.weight_gather_info() is None
     x = torch.ones(2)

@@ -261,8 +261,17 @@ def test_launcher_refuses_without_cuda():
 @pytest.mark.parametrize("flags", (("--mesh", "single"), ("--mesh", "multi"),
                                    ("--lower-only",)))
 def test_launcher_mesh_paths_name_the_roadmap(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.3"):
+    """The production meshes need 256 or 512 ranks (one process here);
+    --lower-only waits for the dry-run slice (ROADMAP §1.3)."""
+    if flags[0] == "--lower-only":
+        with pytest.raises(NotImplementedError, match="ROADMAP §1.3"):
+            TL.main(_argv("--device", "cpu", *flags))
+        return
+    want = "512" if flags[1] == "multi" else "256"
+    with pytest.raises(RuntimeError, match=f"needs {want} ranks"):
         TL.main(_argv("--device", "cpu", *flags))
+    import torch.distributed as dist
+    assert not dist.is_initialized()         # the group is torn down
 
 
 def test_launcher_matches_reference_launcher(ref, monkeypatch, capsys):
