@@ -4,8 +4,9 @@ three codecs (cusz, cusz-i, fz) with every CUDA kernel of their paths
 held against its plain PyTorch version, their consumers, the serving
 path of three model families: dense (qwen3-4b), MLA + MoE
 (deepseek-v2-236b, 2 layers) and Mamba2/SSD (mamba2-1.3b), the
-training path (qwen3-4b) with its cusz restart files, and the device
-mesh on a one-rank NCCL group.
+training path (qwen3-4b) with its cusz restart files, the device mesh
+on a one-rank NCCL group, and the production dry run on a fake group of
+256 ranks.
 
 Run from the repository root, with no arguments:
 
@@ -130,6 +131,21 @@ Phases, each printing one JSON line:
             parameters placed FSDP, cusz saves in 1 and 4 shards, the
             elastic restore onto mesh B bit-equal, one leaf by the plain
             versions, the `use_restore_compress` wire leg in its bound)
+  dryrun:*  the production dry run (`launch/dryrun.py`) on a fake group
+            of 256 ranks under fake tensors, one process per cell with
+            the card hidden, all started together after the card's
+            phases (they would take host cores from those phases'
+            timings), each to end within one cap from that start:
+            qwen3-4b `decode_32k` at
+            its published depth (the sharded decode), qwen3-4b
+            `prefill_32k` cut to 2 of 36 layers (its blocked attention
+            is 1,024 flash blocks per layer at 32k, each a few dozen
+            host operations under fake tensors), deepseek-v2-236b
+            `train_4k` at its published widths cut to 2 of 60 layers
+            (int8 moments, MLA and MoE backward) and mamba2-1.3b
+            `train_4k` cut to 4 of 48 layers;
+            each must report status ok, with its per-rank memory,
+            collectives and build seconds
 
 Each of the consumer, serve, train and mesh phases is driven with the
 launch counts set to 0 just before it (each serve phase before itself)
@@ -2207,7 +2223,8 @@ def phase_mesh_train(torch, dev, seed: int) -> dict:
     The same steps mesh-less, with `compress_for_gather` on the same
     leaves, must give losses equal within 1e-6 relative.  Step 1 runs
     under `CommDebugMode`, step 2 under a device-only profiler (both
-    runs), for the step time and the kernels per step."""
+    runs), for the step time and the kernels per step.  Then 3 steps
+    with int8 AdamW moments, on the mesh and mesh-less: losses bit-equal."""
     import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -2281,6 +2298,30 @@ def phase_mesh_train(torch, dev, seed: int) -> dict:
 
     off = run(meshless, twin, adamw.init(twin, plain.adamw), lambda t: t)
     rel = max(abs(a - b) / abs(b) for a, b in zip(on[0], off[0]))
+    del twin
+    torch.cuda.empty_cache()
+    # int8 AdamW moments: the mesh step and the mesh-less one, same setting
+    qcfg = TT.TrainConfig(adamw=adamw.AdamWConfig(quantized_moments=True))
+    qlosses = {}
+    for where in ("mesh", "meshless"):
+        p = M.init_params(torch.Generator(dev).manual_seed(seed), cfg,
+                          device=dev)
+        step_fn = TT.make_train_step(cfg, qcfg)
+        wrap = (lambda t: t)
+        if where == "mesh":
+            p = SH.place(p, SH.param_shardings(p, mesh, fsdp=True))
+            wrap = (lambda t: SH.NamedSharding(mesh, SH.batch_spec(mesh))
+                    .place(t))
+        opt = adamw.init(p, qcfg.adamw)
+        qlosses[where] = []
+        with (use_mesh(mesh) if where == "mesh" else use_mesh(None)), \
+                use_param_specs(pspecs if where == "mesh" else None):
+            for st in range(sizes["train_steps"]):
+                loss, p, opt = step_fn(p, opt, wrap(batch(st)))
+                qlosses[where].append(float(loss))
+        del p, opt
+        torch.cuda.empty_cache()
+    q_equal = qlosses["mesh"] == qlosses["meshless"]
     rec = {"phase": "mesh:train", "arch": cfg.name, "layers": cfg.n_layers,
            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
            "backend": dist.get_backend(),
@@ -2299,13 +2340,16 @@ def phase_mesh_train(torch, dev, seed: int) -> dict:
                "meshless": off[2]["profile"]["device_busy_share"]},
            "comm_counts": on[2]["comm_counts"],
            "comm_counts_meshless": off[2]["comm_counts"],
+           "int8_moments_losses": qlosses,
+           "int8_moments_bit_equal": q_equal,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": {k: v for k, v in counts.items() if v}}
     emit(rec)
     require(gathered and all(math.isfinite(v) for v in on[0] + off[0])
             and rel <= 1e-6,
             f"mesh:train: losses {on[0]} against mesh-less {off[0]}")
-    del twin
+    require(q_equal and all(math.isfinite(v) for v in qlosses["mesh"]),
+            f"mesh:train: int8 moments, losses {qlosses}")
     torch.cuda.empty_cache()
     return counts
 
@@ -2400,11 +2444,13 @@ def phase_mesh_moe(torch, dev, seed: int) -> dict:
 def phase_mesh_reshard(torch, dev, seed: int) -> dict:
     """qwen3-4b at its published width and depth: prefill 4 x 512 on mesh
     A, `encode_handoff` on the int8-block and cusz wires,
-    `reshard_caches(mesh=B)`, 16 greedy tokens on mesh B.  The
-    int8-block leg must adopt every cache tensor with no decode and give
-    the mesh-less `generate`'s tokens; the cusz leg runs kernels 1-6, and
-    its first cache tensor's containers, encoded from the mesh-placed
-    leaf, must equal the plain versions' byte for byte."""
+    `reshard_caches(mesh=B)`, 16 greedy tokens on mesh B by the sharded
+    decode (`mesh_decode_step`: parameters placed FSDP, caches by the
+    decode cache rule; seconds per step timed apart).  The int8-block
+    leg must adopt every cache tensor with no decode and give the
+    mesh-less `generate`'s tokens; the cusz leg runs kernels 1-6, and its
+    first cache tensor's containers, encoded from the mesh-placed leaf,
+    must equal the plain versions' byte for byte."""
     import numpy as np
 
     from repro_torch import configs
@@ -2429,7 +2475,7 @@ def phase_mesh_reshard(torch, dev, seed: int) -> dict:
                            seed)
     want = E.generate(params, cfg, prompt, MESH["new"], scfg)
     pa = SH.place(params, SH.param_shardings(params, mesh_a))
-    pb = SH.place(params, SH.param_shardings(params, mesh_b))
+    pb = SH.place(params, SH.param_shardings(params, mesh_b, fsdp=True))
     del params
     dispatch.reset_launches()
     t0 = time.perf_counter()
@@ -2455,11 +2501,15 @@ def phase_mesh_reshard(torch, dev, seed: int) -> dict:
             rs = dict(E.LAST_RESHARD_STATS)
             q = cb.entries[0][0].q
             on_b = q.device_mesh is mesh_b and q.dtype == torch.int8
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
             toks = E.decode_tokens(pb, cfg, scfg, last_b, cb, plen,
                                    MESH["new"]).full_tensor()
         torch.cuda.synchronize()
+        t2 = time.perf_counter()
         legs[wire] = {"handoff": hs, "reshard": rs, "encode_s": t_enc,
-                      "reshard_decode_s": time.perf_counter() - t0,
+                      "reshard_decode_s": t2 - t0, "reshard_s": t1 - t0,
+                      "decode_s_per_step": (t2 - t1) / MESH["new"],
                       "q_on_mesh_b": on_b,
                       "tokens_equal_meshless": bool(torch.equal(toks,
                                                                 want)),
@@ -2628,6 +2678,102 @@ def phase_mesh_checkpoint(torch, dev, seed: int) -> dict:
     return counts
 
 
+#: dry-run cells on a fake group of 256 ranks: (arch, shape, layers kept
+#: of the published depth, or None for all of it)
+DRYRUN_CELLS = (("qwen3-4b", "decode_32k", None),
+                ("qwen3-4b", "prefill_32k", 2),
+                ("deepseek-v2-236b", "train_4k", 2),
+                ("mamba2-1.3b", "train_4k", 4))
+#: wall seconds from the dry-run cells' common start by which each must
+#: have ended
+DRYRUN_CAP_S = 240.0
+
+
+def dryrun_child(arch: str, shape: str, layers: int) -> int:
+    """One dry-run cell in this process (started by `phase_dryrun` with
+    the card hidden): the config cut to `layers` (0: its published
+    depth), the record printed as the last line."""
+    import dataclasses
+
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    cfg = configs.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    rec = dryrun.run_cell(arch, shape, False, force=True, cfg=cfg,
+                          out_dir=str(ROOT / "chiprun_out" / "dryrun"))
+    rec["layers"] = f"{cfg.n_layers} of {configs.get(arch).n_layers}"
+    print(json.dumps(rec, default=str), flush=True)
+    return 0
+
+
+def phase_dryrun() -> None:
+    """The dry-run cells (`DRYRUN_CELLS`), each in a process of its own
+    (the fake process group cannot share a process with the NCCL one)
+    with the card hidden, all started together; a cell fails unless its
+    process ends within `DRYRUN_CAP_S` of that start and reports
+    ``status: "ok"``.  Per cell: the per-rank memory, collective counts,
+    build seconds, torch version and the process's own wall seconds."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    logs = ROOT / "chiprun_out" / "dryrun"
+    logs.mkdir(parents=True, exist_ok=True)
+    procs, files = [], []
+    t0 = time.perf_counter()
+    try:
+        for arch, shape, layers in DRYRUN_CELLS:
+            stem = logs / f"{arch}__{shape}"
+            out, err = (open(f"{stem}.{x}", "w+") for x in ("out", "err"))
+            files.append((out, err))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--dryrun-cell", arch, shape, str(layers or 0)],
+                stdout=out, stderr=err, text=True, env=env, cwd=str(ROOT)))
+        ends = [None] * len(procs)        # each process's own end
+        while None in ends and time.perf_counter() - t0 < DRYRUN_CAP_S:
+            for i, p in enumerate(procs):
+                if ends[i] is None and p.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for (arch, shape, _), p, end, (out, err) in zip(DRYRUN_CELLS, procs,
+                                                    ends, files):
+        out.seek(0)
+        err.seek(0)
+        lines = [ln for ln in out.read().splitlines() if ln.startswith("{")]
+        rec = json.loads(lines[-1]) if lines else {
+            "status": "error", "error": err.read()[-2000:]}
+        out.close()
+        err.close()
+        emit({"phase": f"dryrun:{arch}:{shape}",
+              "status": rec.get("status"), "layers": rec.get("layers"),
+              "cell": rec.get("cell"), "torch": rec.get("torch"),
+              "n_ranks": rec.get("n_chips"),
+              "build_s": rec.get("lower_s"),
+              "per_rank_GiB": (rec.get("memory") or {}).get(
+                  "per_device_total_GiB"),
+              "collective_counts": rec.get("collective_counts"),
+              "collective_bytes_by_op": rec.get("collective_by_op"),
+              "flops_per_rank": rec.get("flops_per_device"),
+              "roofline": rec.get("roofline"),
+              "useful_flops_ratio": rec.get("useful_flops_ratio"),
+              "wall_s": end, "error": rec.get("error")})
+        require(end is not None, f"dryrun:{arch}:{shape}: past the "
+                f"{DRYRUN_CAP_S:.0f} s cap")
+        require(p.returncode == 0 and rec.get("status") == "ok",
+                f"dryrun:{arch}:{shape}: {rec.get('error')}")
+
+
 MESH_PHASES = (("mesh:train", phase_mesh_train),
                ("mesh:moe", phase_mesh_moe),
                ("mesh:reshard", phase_mesh_reshard),
@@ -2647,7 +2793,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the consumer, serve and train phases' "
                          "weights, caches and tokens")
+    ap.add_argument("--dryrun-cell", nargs=3, default=None,
+                    metavar=("ARCH", "SHAPE", "LAYERS"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dryrun_cell:
+        arch, shape, layers = args.dryrun_cell
+        return dryrun_child(arch, shape, int(layers))
     import torch
 
     if not torch.cuda.is_available():
@@ -2689,6 +2841,7 @@ def main() -> int:
         for name, fn in MESH_PHASES:
             torch.cuda.empty_cache()
             per_path[name] = timed(name, fn, torch, dev, args.seed)
+    timed("dryrun", phase_dryrun)
     # launches summed over the three codecs' main paths, the consumer,
     # serve, train and mesh phases
     summary = [{**kernels[k],

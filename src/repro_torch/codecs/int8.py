@@ -157,16 +157,22 @@ class Int8Codec(Codec):
         tensor encode: the per-tensor scale is derived once from the full
         tensor and pinned for every slice (each part stores a copy)."""
         t = as_tensor(x)
-        scale = _floor(true_div(t.to(torch.float32).abs().amax(),
-                            float(self.qmax)))
+        amax = t.to(torch.float32).abs().amax()
         step = t.shape[axis] // nshards
-        parts = []
-        for h in range(nshards):
-            sl = slice_axis(t, axis, h * step, (h + 1) * step)
-            q, _ = quantize(sl, float(self.qmax), self.qdtype, scale=scale)
-            parts.append(Container(self._header(sl, bits=self.bits),
-                                   {"q": q, "scale": scale}))
-        return parts
+        return [self.encode_slice(slice_axis(t, axis, h * step,
+                                             (h + 1) * step), amax)
+                for h in range(nshards)]
+
+    def encode_slice(self, sl, amax):
+        """One part of `encode_parts`: the slice `sl` under the scale
+        pinned by the whole tensor's max |x| `amax` (a 0-d f32 tensor or
+        the float it holds), so that a part can be encoded where it
+        lies."""
+        amax = torch.as_tensor(amax, dtype=torch.float32, device=sl.device)
+        scale = _floor(true_div(amax, float(self.qmax)))
+        q, _ = quantize(sl, float(self.qmax), self.qdtype, scale=scale)
+        return Container(self._header(sl, bits=self.bits),
+                         {"q": q, "scale": scale})
 
     def payload_axes(self, axis: int):
         return {"q": axis, "scale": None}       # scale is the shared pin

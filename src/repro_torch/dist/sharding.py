@@ -22,6 +22,8 @@ does.
 """
 from __future__ import annotations
 
+import math
+from types import SimpleNamespace
 from typing import Any, Optional, Sequence, Tuple
 
 from repro_torch.tree import leaves_with_path, rebuild, tree_map
@@ -157,14 +159,131 @@ def _leaf_spec(path, leaf, shape_of_mesh, fsdp: bool) -> P:
     return P(*assign)
 
 
+#: int8 AdamW moments: values per f32 scale along the last dim
+#: (`optim.adamw.QBLOCK`)
+MOMENT_BLOCK = 128
+
+
+def _axes(el) -> Tuple[str, ...]:
+    if el is None:
+        return ()
+    return tuple(el) if isinstance(el, tuple) else (el,)
+
+
+def quantized_moment_spec(spec, shape, shape_of_mesh) -> P:
+    """Where the port keeps an int8 AdamW moment (`QTensor` ``q`` and
+    ``scale`` alike) of a parameter placed by `spec`.
+
+    Each rank quantizes its own shard in blocks of `MOMENT_BLOCK` along
+    the last dim, which are the global array's blocks only when the
+    shard's last dim is a whole number of blocks.  So the parameter's
+    spec is kept unless it splits the last dim into shards that are not;
+    then each axis of the last dim moves to the largest other dim that
+    no axis shards yet and that it divides, or, with none, leaves the
+    moment (it is then replicated over that axis).  The reference
+    quantizes the global array and places ``q`` and ``scale`` by their
+    own shapes; the codes and scales are the same, only where they live
+    differs."""
+    shape = tuple(int(s) for s in shape)
+    ndim = len(shape)
+    elems = list(spec) + [None] * (ndim - len(spec))
+    if ndim == 0:
+        return P()
+    last = _axes(elems[-1])
+    k = math.prod(_axis_size(shape_of_mesh, a) for a in last)
+    if not last or (shape[-1] // k) % MOMENT_BLOCK == 0:
+        return P(*spec)
+    elems[-1] = None
+    for ax in last:
+        size = _axis_size(shape_of_mesh, ax)
+        free = [j for j in range(ndim - 1)
+                if elems[j] is None and shape[j] % size == 0]
+        if free:
+            elems[max(free, key=lambda j: shape[j])] = ax
+    while elems and elems[-1] is None:
+        elems.pop()
+    return P(*elems)
+
+
+def _is_qtensor_field(path) -> bool:
+    return bool(path) and str(path[-1]) in (".q", ".scale")
+
+
 def param_specs(tree: Any, mesh, *, fsdp: bool = False) -> Any:
     """A `P` tree mirroring `tree` (params, opt state, grads; meta
     tensors where only the shapes exist).  Only the mesh's axis sizes are
-    read."""
+    read.  An int8 moment's ``q`` and ``scale`` both take
+    `quantized_moment_spec` of its parameter's spec (the port's one
+    departure from the reference's specs)."""
     shape_of_mesh = mesh_shape(mesh)
-    specs = [_leaf_spec(path, leaf, shape_of_mesh, fsdp)
-             for path, leaf in leaves_with_path(tree)]
+    specs = []
+    for path, leaf in leaves_with_path(tree):
+        if not _is_qtensor_field(path):
+            specs.append(_leaf_spec(path, leaf, shape_of_mesh, fsdp))
+            continue
+        shape = tuple(int(s) for s in leaf.shape)
+        if str(path[-1]) == ".scale":
+            shape = shape[:-1] + (shape[-1] * MOMENT_BLOCK,)
+        q = SimpleNamespace(shape=shape)
+        specs.append(quantized_moment_spec(
+            _leaf_spec(path[:-1], q, shape_of_mesh, fsdp), shape,
+            shape_of_mesh))
     return rebuild(tree, iter(specs))
+
+
+def spec_of(t) -> P:
+    """The `P` of a DTensor's placements on its mesh (the inverse of
+    `placements`); a plain tensor is `P()`."""
+    from torch.distributed.tensor import Shard
+
+    mesh = getattr(t, "device_mesh", None)
+    if mesh is None:
+        return P()
+    per_dim: list = [[] for _ in range(t.dim())]
+    for name, pl in zip(mesh.mesh_dim_names, t.placements):
+        if isinstance(pl, Shard):
+            per_dim[pl.dim].append(name)
+    elems = [None if not a else (a[0] if len(a) == 1 else tuple(a))
+             for a in per_dim]
+    while elems and elems[-1] is None:
+        elems.pop()
+    return P(*elems)
+
+
+def cache_spec(path, shape, shape_of_mesh, dp, long_ctx: bool) -> P:
+    """The reference dry run's decode / prefill cache layout
+    (``_cache_shard_rule``): batch over the data-parallel axes `dp`;
+    GQA K/V [nP, B, S, KV, hd] and MLA latents [nP, B, S, R] with the
+    sequence over "model" (over "data", batch unsplit, for a long
+    context); a Mamba state [nP, B, H, N, P] with its heads and its
+    conv tail [nP, B, K-1, C] with its channels over "model" where they
+    divide.  The Mamba leaves are found by their names (``conv``, ``h``)
+    in the path."""
+    names = [_key_name(k) for k in path]
+    ndim = len(shape)
+    msz = _axis_size(shape_of_mesh, "model")
+    rows = None if long_ctx else dp
+    if "conv" in names:
+        return P(None, rows, None,
+                 "model" if shape[-1] % msz == 0 else None)
+    if "h" in names:
+        return P(None, rows, "model" if shape[2] % msz == 0 else None,
+                 None, None)
+    seq = "data" if long_ctx else "model"
+    if ndim == 4:
+        return P(None, rows, seq, None)
+    return P(None, rows, seq, None, None)
+
+
+def cache_specs(caches: Any, mesh, long_ctx: bool = False) -> Any:
+    """`cache_spec` over a cache tree (a `DecodeCaches`, its QuantKV
+    leaves included) on `mesh`."""
+    shape_of_mesh = mesh_shape(mesh)
+    dp = dp_axes(mesh)
+    specs = [cache_spec(path, tuple(int(s) for s in leaf.shape),
+                        shape_of_mesh, dp, long_ctx)
+             for path, leaf in leaves_with_path(caches)]
+    return rebuild(caches, iter(specs))
 
 
 def placements(spec, mesh, ndim: Optional[int] = None):
@@ -268,3 +387,17 @@ def batch_spec(mesh, podded: bool = False) -> P:
         return P("pod", "data", None)
     axes = dp_axes(mesh)
     return P(axes if axes else None, None)
+
+
+def place_extra(extra, mesh, podded: bool = False):
+    """The modality inputs (``patch_embeds`` [B, P, D], ``frame_embeds``
+    [B, S, D]) placed by rows as the reference's dry run places them:
+    over the data-parallel axes, or, in the podded layout
+    [npods, B/npods, ...], over ("pod", "data").  DTensors pass."""
+    from torch.distributed.tensor import DTensor
+
+    if not extra:
+        return None
+    spec = P("pod", "data") if podded else P(dp_axes(mesh) or None)
+    return {k: a if isinstance(a, DTensor) else
+            NamedSharding(mesh, spec).place(a) for k, a in extra.items()}

@@ -55,7 +55,9 @@ scales instead (lossy, scale/2), counted in ``LAST_RESTORE_STATS``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
 import os
 import shutil
 import zipfile
@@ -138,14 +140,37 @@ class CheckpointPolicy:
     rules: Tuple[Tuple[str, str], ...] = ()      # (key substring, codec id)
 
     def codec_for(self, key: str, arr) -> str:
+        name = self.lossy_candidate(key, arr.dtype, arr.numel())
+        if name is None:
+            return "lossless"
+        # one device reduction; only the bool crosses to the host
+        lo, hi = torch.aminmax(arr.to(torch.float32))
+        return name if self.spans(torch.isfinite(arr).all(), lo, hi) \
+            else "lossless"
+
+    def lossy_candidate(self, key: str, dtype: torch.dtype,
+                        numel: int) -> Optional[str]:
+        """The codec that the config names for the leaf at `key` (the
+        first matching rule's, else `codec`), or None when the leaf
+        stores lossless whatever its values: the codec is lossless, or
+        the leaf is not float or smaller than `min_size`."""
         name = self.codec
         for sub, override in self.rules:
             if sub in key:
                 name = override
                 break
-        if name == "lossless" or not self._eligible(arr):
-            return "lossless"
+        if name == "lossless" or not dtype.is_floating_point \
+                or numel < self.min_size:
+            return None
         return name
+
+    @staticmethod
+    def spans(finite: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+              ) -> bool:
+        """The values' half of a candidate's eligibility: all finite
+        (`finite`, a bool tensor) and a range above zero (`lo`, `hi`,
+        the f32 min and max)."""
+        return bool(finite & (hi - lo > 0))
 
     def make_codec(self, name: str) -> codecs.Codec:
         if name in ("cusz", "cusz-i", "fz"):
@@ -157,13 +182,6 @@ class CheckpointPolicy:
                               use_tpu_blocks=True,
                               kernel_impl=self.kernel_impl, **extra)
         return codecs.get(name)
-
-    def _eligible(self, arr: torch.Tensor) -> bool:
-        if not arr.dtype.is_floating_point or arr.numel() < self.min_size:
-            return False
-        # one device reduction; only the bool crosses to the host
-        lo, hi = torch.aminmax(arr.to(torch.float32))
-        return bool(torch.isfinite(arr).all() & (hi - lo > 0))
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -185,8 +203,9 @@ def _is_dtensor(x) -> bool:
 
 def _flatten(tree, device=None) -> Dict[str, Any]:
     """key -> leaf tensor; tensors stay where they are (no host gather),
-    DTensors are gathered whole (every rank joins), arrays and scalars go
-    to `device` (default CUDA)."""
+    DTensors are gathered whole (every rank joins: only a one-rank mesh
+    takes this path), arrays and scalars go to `device` (default
+    CUDA)."""
     def one(leaf):
         if _is_dtensor(leaf):
             return leaf.full_tensor()
@@ -256,6 +275,76 @@ def _aliases(v, leaf: torch.Tensor) -> bool:
         == leaf.untyped_storage().data_ptr()
 
 
+def _lossless_parts(codec: codecs.Codec, leaf, axis, nshards: int):
+    """The lossless parts of `leaf`: along `axis`, or along its own
+    shard axis when there is none yet (whole when it has none)."""
+    if axis is None or nshards == 1:
+        axis = codec.shard_axis(leaf.shape, nshards)
+    if axis is None:
+        return None, [codec.encode(leaf)]
+    return axis, codec.encode_parts(leaf, axis, nshards)
+
+
+def _encode_parts(name: str, codec_cache, leaf, nshards: int):
+    """Pass A for one leaf: its codec's parts (split along the codec's
+    shard axis, or whole), or lossless ones when the codec cannot
+    represent it (eb below f32 resolution, block-misaligned dims).
+    Returns (name, axis, parts)."""
+    codec = codec_cache[name]
+    axis = codec.shard_axis(leaf.shape, nshards) if nshards > 1 else None
+    try:
+        if axis is not None:
+            return name, axis, codec.encode_parts(leaf, axis, nshards)
+        return name, None, [codec.encode(leaf)]
+    except (ValueError, AssertionError):
+        return ("lossless",) + _lossless_parts(codec_cache["lossless"],
+                                               leaf, None, nshards)
+
+
+def _verdict(codec: codecs.Codec, parts) -> Tuple[bool, int]:
+    """Pass B's reads of some of a leaf's parts (scalar-sized only):
+    whether they all decode faithfully and, if they do, their stored
+    bytes."""
+    ok = all(codec.valid(p) for p in parts)
+    return ok, (_stored_size_estimate(codec, parts) if ok else 0)
+
+
+def _keeps(verdicts, raw: int) -> bool:
+    """Pass B: whether a codec's parts, read as `_verdict`s (one per
+    rank that holds some, or one for them all), decode faithfully and
+    store fewer bytes than the raw leaf."""
+    return all(ok for ok, _ in verdicts) \
+        and sum(n for _, n in verdicts) < raw
+
+
+def _snapshot(parts, leaf):
+    """Payloads that alias the live leaf buffer, copied (async mode: a
+    mutation of the state during the overlapped write cannot corrupt the
+    checkpoint)."""
+    return [p.replace(payload={k: (v.clone() if _aliases(v, leaf) else v)
+                               for k, v in p.payload.items()})
+            for p in parts]
+
+
+def _owner_shards(owner_load: List[int], axis, raw: int) -> List[int]:
+    """The shard of each part: one per shard when split, else the
+    least-loaded owner shard so far."""
+    nshards = len(owner_load)
+    if axis is not None:
+        return list(range(nshards))
+    h = int(np.argmin(owner_load)) if nshards > 1 else 0
+    owner_load[h] += raw
+    return [h]
+
+
+def _codec_cache(policy: CheckpointPolicy):
+    class _Cache(dict):
+        def __missing__(self, name):
+            self[name] = policy.make_codec(name)
+            return self[name]
+    return _Cache(lossless=codecs.get("lossless"))
+
+
 def _encode_tree(flat: Dict[str, Any], policy: CheckpointPolicy,
                  nshards: int, snapshot: bool) -> List[_LeafPlan]:
     """Run every leaf's codec on its device and plan shard placement.
@@ -265,61 +354,257 @@ def _encode_tree(flat: Dict[str, Any], policy: CheckpointPolicy,
     mutation of the state during the overlapped write cannot corrupt the
     checkpoint.
     """
-    codec_cache: Dict[str, codecs.Codec] = {"lossless": codecs.get("lossless")}
-    plans: List[_LeafPlan] = []
+    codec_cache = _codec_cache(policy)
     owner_load = [0] * nshards
-
-    def lossless_parts(leaf, axis):
-        codec = codec_cache["lossless"]
-        if axis is None or nshards == 1:
-            axis = codec.shard_axis(leaf.shape, nshards)
-        if axis is None:
-            return None, [codec.encode(leaf)]
-        return axis, codec.encode_parts(leaf, axis, nshards)
-
     # pass A: dispatch every encode
-    staged = []
-    for key, leaf in flat.items():
-        name = policy.codec_for(key, leaf)
-        if name not in codec_cache:
-            codec_cache[name] = policy.make_codec(name)
-        codec = codec_cache[name]
-        axis = codec.shard_axis(leaf.shape, nshards) if nshards > 1 else None
-        try:
-            if axis is not None:
-                parts = codec.encode_parts(leaf, axis, nshards)
-            else:
-                parts = [codec.encode(leaf)]
-        except (ValueError, AssertionError):
-            # codec cannot represent the leaf (eb below f32 resolution,
-            # block-misaligned dims): store raw
-            name, codec = "lossless", codec_cache["lossless"]
-            axis, parts = lossless_parts(leaf, None)
-        staged.append((key, leaf, name, axis, parts))
-
-    # pass B: validity + does-it-win decisions (scalar-sized reads only),
-    # falling back to lossless so the codec never expands a checkpoint
+    staged = [(key, leaf) + _encode_parts(policy.codec_for(key, leaf),
+                                          codec_cache, leaf, nshards)
+              for key, leaf in flat.items()]
+    # pass B: validity + does-it-win decisions, falling back to lossless
+    # so the codec never expands a checkpoint
+    plans: List[_LeafPlan] = []
     for key, leaf, name, axis, parts in staged:
         raw = _nbytes(leaf)
-        codec = codec_cache[name]
-        if name != "lossless":
-            ok = all(codec.valid(p) for p in parts)
-            if not ok or _stored_size_estimate(codec, parts) >= raw:
-                name, codec = "lossless", codec_cache["lossless"]
-                axis, parts = lossless_parts(leaf, axis)
+        if name != "lossless" and not _keeps(
+                [_verdict(codec_cache[name], parts)], raw):
+            name = "lossless"
+            axis, parts = _lossless_parts(codec_cache[name], leaf, axis,
+                                          nshards)
         if snapshot and name == "lossless":
-            parts = [p.replace(payload={
-                k: (v.clone() if _aliases(v, leaf) else v)
-                for k, v in p.payload.items()}) for p in parts]
-        if axis is not None:
-            shards = list(range(nshards))
-        else:                         # owner shard: least-loaded so far
-            h = int(np.argmin(owner_load)) if nshards > 1 else 0
-            shards = [h]
-            owner_load[h] += raw
-        plans.append(_LeafPlan(key, name, codec.version, axis, parts,
-                               shards, raw))
+            parts = _snapshot(parts, leaf)
+        plans.append(_LeafPlan(key, name, codec_cache[name].version, axis,
+                               parts, _owner_shards(owner_load, axis, raw),
+                               raw))
     return plans
+
+
+# ---------------------------------------------------------------------------
+# Phase 1 on a mesh: each part encoded on one rank, payloads to rank 0
+# ---------------------------------------------------------------------------
+
+def _box_of(shape, sizes, coord, placements):
+    """(offset, shape) of the shard that the rank at mesh coordinate
+    `coord` holds of a tensor of global `shape` (DTensor's ``Shard``
+    splits as `torch.chunk` does, mesh dims in order)."""
+    from torch.distributed.tensor import Shard
+
+    lo, size = [0] * len(shape), [int(s) for s in shape]
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            d, n, k = pl.dim, size[pl.dim], int(sizes[i])
+            c = -(-n // k)
+            start = min(c * int(coord[i]), n)
+            lo[d] += start
+            size[d] = min(start + c, n) - start
+    return lo, size
+
+
+def _gather_box(leaf, lo, hi, dst: int):
+    """The box ``[lo, hi)`` of the DTensor `leaf`, assembled on global
+    rank `dst` (None on the other ranks): each element comes from the
+    one rank that holds it at coordinate 0 of every mesh dim that
+    replicates it, point to point.  No rank sees more of the leaf than
+    its own shard and, on `dst`, the box."""
+    import itertools
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    mesh = leaf.device_mesh
+    sizes = tuple(mesh.shape)
+    me = dist.get_rank()
+    local = leaf.to_local()
+    out = (torch.empty([h - l for l, h in zip(lo, hi)], dtype=leaf.dtype,
+                       device=local.device) if me == dst else None)
+    ops, recvs = [], []
+    for coord in itertools.product(*(range(n) for n in sizes)):
+        if any(isinstance(pl, Replicate) and c != 0
+               for pl, c in zip(leaf.placements, coord)):
+            continue
+        src = int(mesh.mesh[coord])
+        o, n = _box_of(leaf.shape, sizes, coord, leaf.placements)
+        a = [max(x, y) for x, y in zip(o, lo)]
+        b = [min(x + m, y) for x, m, y in zip(o, n, hi)]
+        if any(x >= y for x, y in zip(a, b)):
+            continue
+        if src == me:
+            piece = local[tuple(slice(x - y, z - y)
+                                for x, z, y in zip(a, b, o))]
+        if src == me == dst:
+            out[tuple(slice(x - y, z - y) for x, z, y in zip(a, b, lo))] \
+                = piece
+        elif src == me:
+            ops.append(dist.isend(piece.contiguous(), dst))
+        elif me == dst:
+            buf = torch.empty([z - x for x, z in zip(a, b)],
+                              dtype=leaf.dtype, device=local.device)
+            ops.append(dist.irecv(buf, src))
+            recvs.append((a, b, buf))
+    for op in ops:
+        op.wait()
+    for a, b, buf in recvs:
+        out[tuple(slice(x - y, z - y) for x, z, y in zip(a, b, lo))] = buf
+    return out
+
+
+def _all_reduce(vals, op):
+    import torch.distributed as dist
+
+    t = torch.tensor(vals, dtype=torch.float64)
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    dist.all_reduce(t, op=op)
+    return t.cpu().tolist()
+
+
+def _mesh_codec_for(policy: CheckpointPolicy, key: str, leaf) -> str:
+    """`policy.codec_for` of a DTensor leaf without gathering it: the
+    finiteness and range of the whole leaf by all-reduce over the
+    ranks' shards."""
+    import torch.distributed as dist
+
+    name = policy.lossy_candidate(key, leaf.dtype, leaf.numel())
+    if name is None:
+        return "lossless"
+    local = leaf.to_local()
+    if local.numel():
+        lo, hi = torch.aminmax(local.to(torch.float32))
+        vals = [-float(lo), float(hi), float(torch.isfinite(local).all())]
+    else:
+        vals = [-math.inf, -math.inf, 1.0]
+    neg_lo, hi = _all_reduce(vals[:2], dist.ReduceOp.MAX)
+    finite = _all_reduce(vals[2:], dist.ReduceOp.MIN)[0]
+    # f32 extremes cross exactly as f64
+    f32 = functools.partial(torch.tensor, dtype=torch.float32)
+    return name if policy.spans(torch.tensor(finite == 1.0), f32(-neg_lo),
+                                f32(hi)) else "lossless"
+
+
+def _encode_held(codec_cache, name: str, leaf, held, raw: int):
+    """Passes A and B of `_encode_tree` for a split-stable DTensor leaf
+    whose parts lie on several ranks (`held`: this rank's, part index ->
+    tensor), every rank joining: an int8 / int16 part takes the scale
+    pinned by the whole leaf's max, and the verdict on the parts of all
+    ranks is one.  Returns (name, this rank's encoded parts), or
+    ("lossless", None) when the codec cannot represent a part: the leaf
+    then stores lossless along that codec's own axis, as
+    `_encode_parts` stores it."""
+    import torch.distributed as dist
+
+    from repro_torch.codecs.int8 import Int8Codec
+
+    codec = codec_cache[name]
+    pin = None
+    if isinstance(codec, Int8Codec):
+        local = leaf.to_local()
+        amax = float(local.to(torch.float32).abs().amax()) \
+            if local.numel() else 0.0
+        pin = _all_reduce([amax], dist.ReduceOp.MAX)[0]
+    try:
+        enc = {i: (codec.encode_slice(t, pin) if pin is not None
+                   else codec.encode(t)) for i, t in held.items()}
+        verdict = _verdict(codec, enc.values())
+    except (ValueError, AssertionError):
+        enc, verdict = None, None
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, verdict)
+    if any(v is None for v in got):
+        return "lossless", None
+    if name == "lossless" or _keeps(got, raw):
+        return name, enc
+    # `_lossless_parts` along the same axis: each part on its own
+    lossless = codec_cache["lossless"]
+    return "lossless", {i: lossless.encode(t) for i, t in held.items()}
+
+
+def _mesh_encode_tree(tree, policy: CheckpointPolicy, nshards: int,
+                      device) -> Optional[List[_LeafPlan]]:
+    """Phase 1 of a save of a tree of DTensors on a mesh, every rank
+    joining: the plans of `_encode_tree`, with packed parts, on rank 0
+    (None on the others).
+
+    A split-stable leaf (its codec has a shard axis) is cut into one part
+    per shard file; each part is assembled on one rank (round robin) from
+    the ranks that hold it, and encoded there; an int8 / int16 part takes
+    the scale pinned by the whole leaf's max (one all-reduce).  Any other
+    leaf goes whole to one rank only, which runs `_encode_tree`'s steps on
+    it.  Only the packed parts travel to rank 0.  Plain tensor leaves
+    (the same on every rank) are encoded on rank 0."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    me, world = dist.get_rank(), dist.get_world_size()
+    codec_cache = _codec_cache(policy)
+    owner_load = [0] * nshards
+    plans: List[_LeafPlan] = []
+    turn = 0
+    for path, leaf in _leaves_with_path(tree):
+        key = _leaf_key(path)
+        if not isinstance(leaf, DTensor):
+            if me == 0:
+                plan = _encode_tree(_flatten({key: leaf}, device), policy,
+                                    nshards, False)[0]
+                plan.shards = _owner_shards(owner_load, plan.axis,
+                                            plan.raw_nbytes)
+                plan.parts = [codec_cache[plan.codec].pack(p)
+                              for p in plan.parts]
+                plans.append(plan)
+            continue
+        raw = leaf.numel() * leaf.element_size()
+        name = _mesh_codec_for(policy, key, leaf)
+        while True:
+            codec = codec_cache[name]
+            axis = codec.shard_axis(leaf.shape, nshards) if nshards > 1 \
+                else None
+            if axis is None:
+                owner = turn % world
+                turn += 1
+                whole = _gather_box(leaf, [0] * leaf.dim(),
+                                    list(leaf.shape), owner)
+                mine, info = {}, None     # part index -> packed container
+                if me == owner:
+                    name, axis, parts = _encode_parts(name, codec_cache,
+                                                      whole, nshards)
+                    if name != "lossless" and not _keeps(
+                            [_verdict(codec_cache[name], parts)], raw):
+                        name = "lossless"
+                        axis, parts = _lossless_parts(codec_cache[name],
+                                                      whole, axis, nshards)
+                    mine = {i: codec_cache[name].pack(p)
+                            for i, p in enumerate(parts)}
+                    info = (name, axis, len(parts))
+                del whole
+                got = [None] * world
+                dist.all_gather_object(got, info)
+                name, axis, nparts = got[owner]
+                break
+            step = leaf.shape[axis] // nshards
+            held = {}
+            for i in range(nshards):
+                lo = [0] * leaf.dim()
+                hi = list(leaf.shape)
+                lo[axis], hi[axis] = i * step, (i + 1) * step
+                owner = turn % world
+                turn += 1
+                part = _gather_box(leaf, lo, hi, owner)
+                if part is not None:
+                    held[i] = part
+            name, enc = _encode_held(codec_cache, name, leaf, held, raw)
+            del held
+            if enc is not None:
+                mine = {i: codec_cache[name].pack(p) for i, p in enc.items()}
+                nparts = nshards
+                break
+            # a part the codec cannot represent: lossless, from the top
+        got = [None] * world if me == 0 else None
+        dist.gather_object(mine, got, dst=0)
+        if me == 0:
+            parts = {i: c for g in got for i, c in g.items()}
+            plans.append(_LeafPlan(
+                key, name, codec_cache[name].version, axis,
+                [parts[i] for i in range(nparts)],
+                _owner_shards(owner_load, axis, raw), raw))
+    return plans if me == 0 else None
 
 
 # ---------------------------------------------------------------------------
@@ -403,19 +688,20 @@ def save_checkpoint(ckpt_dir: str, step: int, tree,
     if writer is None and background:
         writer = default_writer()
     rank, multi = _mesh_ranks(tree)
-    flat = _flatten(tree, device)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if multi:
+        plans = _mesh_encode_tree(tree, policy, int(nshards), device)
+    elif rank == 0:
+        plans = _encode_tree(_flatten(tree, device), policy, int(nshards),
+                             snapshot=writer is not None)
     if rank == 0:                     # the single controller writes
         os.makedirs(ckpt_dir, exist_ok=True)
-        plans = _encode_tree(flat, policy, int(nshards),
-                             snapshot=writer is not None)
         if writer is not None:
             writer.submit(_write_step, ckpt_dir, step, plans, policy.codec,
                           int(nshards))
         else:
             final = _write_step(ckpt_dir, step, plans, policy.codec,
                                 int(nshards))
-    del flat
     if multi:
         import torch.distributed as dist
         dist.barrier()
@@ -643,6 +929,7 @@ def load_checkpoint(ckpt_dir: str, template, step: Optional[int] = None,
     older good step, and the per-step reports land in
     ``LAST_RESTORE_STATS["quarantine"]``.  With ``quarantine=False``
     corruption raises `CheckpointCorruptionError` immediately."""
+    ranks = False
     if shardings is not None:
         import torch.distributed as dist
 
@@ -650,10 +937,15 @@ def load_checkpoint(ckpt_dir: str, template, step: Optional[int] = None,
         first = next(iter(leaves(shardings)), None)
         if first is not None:
             device = first.mesh.device_type
-        if dist.is_initialized() and dist.get_world_size() > 1:
+        ranks = dist.is_initialized() and dist.get_world_size() > 1
+        if ranks:
             dist.barrier()            # rank 0's writes are complete
     dev = input_device(None, device)
     candidates = available_steps(ckpt_dir)
+    if ranks:
+        # every rank has listed the steps before any rank marks one
+        # quarantined: all try (and report) the same steps
+        dist.barrier()
     if step is not None:
         candidates = [s for s in candidates if s <= step]
         if step not in candidates:

@@ -24,9 +24,11 @@ hook compresses only FSDP-sharded leaves) and ``--grad-compress`` takes
 the plain branch (it needs more than one pod): the losses are the
 uncompressed run's.  ``--mesh single|multi`` builds the 16x16 or 2x16x16
 production mesh from ``torchrun``'s environment and raises unless the
-group has 256 or 512 ranks.  ``--lower-only`` (compile without running)
-waits for the port's dry-run.  The weights are random (seed 0), f32,
-computed in bf16; tokens come from the synthetic bigram stream.
+group has 256 or 512 ranks.  ``--lower-only`` runs nothing on a device:
+it builds the step once under fake tensors on a fake group of 256 ranks
+(512 with ``--mesh multi``) and prints the per-rank memory
+(`launch.dryrun`).  The weights are random (seed 0), f32, computed in
+bf16; tokens come from the synthetic bigram stream.
 """
 from __future__ import annotations
 
@@ -46,10 +48,6 @@ from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import TrainConfig, make_train_step
 from repro_torch.train.trainer import state_template
-
-_DRYRUN_TODO = ("--lower-only needs launch/dryrun.py, the port's next "
-                "slice (ROADMAP §1.3)")
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -86,7 +84,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.lower_only:
-        raise NotImplementedError(_DRYRUN_TODO)
+        return _lower_only(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "
                          "CPU")
@@ -97,6 +95,34 @@ def main(argv=None):
             mesh = LM.make_production_mesh(multi_pod=args.mesh == "multi",
                                            device_type=args.device)
         _run(args, mesh)
+
+
+def _lower_only(args):
+    """Build the train step once under fake tensors on a fake group of
+    256 ranks (512 with ``--mesh multi``) at the CLI's arch, batch,
+    sequence and knobs (`launch.dryrun.run_cell`), and print its
+    per-rank memory, FLOPs and collectives."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    cfg = configs.reduced(args.arch) if args.reduced else configs.get(args.arch)
+    multi = args.mesh == "multi"
+    shape = ShapeSpec(f"train_{args.batch}x{args.seq}", "train", args.seq,
+                      args.batch)
+    tcfg = TrainConfig(
+        microbatches=args.microbatches, grad_compress=args.grad_compress,
+        weight_compress=args.weight_compress, npods=2 if multi else 1,
+        adamw=adamw.AdamWConfig(lr=args.lr,
+                                quantized_moments=args.quantized_moments))
+    rec = dryrun.run_cell(args.arch, shape.name, multi, out_dir=None,
+                          cfg=cfg, shape=shape, tcfg=tcfg)
+    if rec["status"] != "ok":
+        raise SystemExit(f"--lower-only: {rec['error']}")
+    print(f"built under fake tensors on {rec['n_chips']} ranks in "
+          f"{rec['lower_s']} s; per-rank memory "
+          f"{rec['memory']['per_device_total_GiB']:.4f} GiB, "
+          f"{rec['flops_per_device']:.4g} FLOP, collectives "
+          f"{rec['collective_counts']}")
 
 
 def _run(args, mesh):

@@ -12,14 +12,14 @@ bf16 x bf16 product is representable in f32.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core import kvcache as KVC
 
 from .config import ModelConfig
-from .layers import apply_rope, dense_init, rms_norm
+from .layers import Split, apply_rope, dense_init, rms_norm
 
 Q_BLOCK = 1024
 KV_BLOCK = 1024
@@ -122,37 +122,12 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 def _flash_qblocked(q, k, v, causal):
     """Outer loop over query blocks keeps the online-softmax state small
     for very long prefill (32k+).  A last partial block is simply
-    shorter (the reference pads it and slices the padding off).  On a
-    mesh (DTensor q, k, v) each rank attends its own rows and heads."""
-    from torch.distributed.tensor import DTensor
-
-    if isinstance(q, DTensor):
-        return _mesh_flash(q, k, v, causal)
+    shorter (the reference pads it and slices the padding off)."""
     Sq = q.shape[1]
     if Sq <= Q_BLOCK:
         return _flash(q, k, v, causal)
     return torch.cat([_flash(q[:, i:i + Q_BLOCK], k, v, causal, q_offset=i)
                       for i in range(0, Sq, Q_BLOCK)], dim=1)
-
-
-def _mesh_flash(q, k, v, causal):
-    """Attention of DTensors, rank by rank: batch rows over the
-    data-parallel axes, query and key heads over "model" when both head
-    counts divide it (else whole on every rank), so every rank holds
-    whole (row, key-head group) problems and the blocked loop runs on its
-    local shards, exactly as off-mesh."""
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.dist.context import constrain, current_mesh
-    from repro_torch.dist.sharding import mesh_shape
-
-    msz = mesh_shape(current_mesh()).get("model", 1)
-    heads = "model" if q.shape[2] % msz == 0 and k.shape[2] % msz == 0 \
-        else None
-    q, k, v = (constrain(t, "dp", None, heads, None) for t in (q, k, v))
-    out = _flash_qblocked(q.to_local(), k.to_local(), v.to_local(), causal)
-    return DTensor.from_local(out, q.device_mesh, q.placements,
-                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -177,44 +152,75 @@ def _qkv(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
 
 
 def _out_proj(p, o: torch.Tensor) -> torch.Tensor:
-    from torch.distributed.tensor import DTensor
-
-    if isinstance(o, DTensor):
-        return _mesh_out_proj(o, p["wo"].to(o.dtype))
     return torch.einsum("bshe,hed->bsd", o, p["wo"].to(o.dtype))
 
 
-def _mesh_out_proj(o, wo):
-    """The output projection of DTensors: each rank contracts its own rows
-    and heads with the local einsum (the off-mesh arithmetic), and the
-    per-rank partial sums over head groups add across "model".  DTensor's
-    own einsum would flatten a head dim it cannot flatten sharded."""
+def _heads_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether a mesh block splits the query (and GQA key) heads over
+    "model": only when every head count divides it."""
+    from repro_torch.dist.sharding import mesh_shape
+
+    msz = mesh_shape(mesh).get("model", 1)
+    kv = cfg.n_kv_heads if cfg.mla is None else cfg.n_heads
+    return msz > 1 and cfg.n_heads % msz == 0 and kv % msz == 0
+
+
+def _head_dim(name: str, t) -> int:
+    """The head dim of an attention weight (the one the sharding rules
+    put on "model"), or None; an MLA low-rank projection has none."""
+    from repro_torch.dist.sharding import _model_dim
+
+    if name in ("wq_a", "wkv_a"):
+        return None
+    return _model_dim([name], t.dim())
+
+
+def _mesh_block(p, cfg: ModelConfig, x, body):
+    """An attention block of a DTensor x, rank by rank (the column- then
+    row-parallel layout): each rank takes its own rows of x and, when
+    `_heads_split`, its own heads of the weights (`local_weights`), runs
+    ``body(weights, local x, split)`` (the off-mesh code on local
+    tensors), which returns the output projection's operands ``(o,
+    wo)`` and the cache entries; the output's partial sums over head
+    groups add across "model".  At one rank the arithmetic is the
+    off-mesh one, kernel for kernel.  Returns the output placed by rows
+    and the cache entries placed by rows (and by heads when they have
+    them and are split)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.dist.context import (constrain, current_mesh,
                                           sum_over_group)
-    from repro_torch.dist.sharding import P, mesh_shape, placements
+
+    from .layers import local_weights
 
     mesh = current_mesh()
-    msz = mesh_shape(mesh).get("model", 1)
-    heads = "model" if o.shape[2] % msz == 0 and msz > 1 else None
-    o = constrain(o, "dp", None, heads, None)
-    wo = wo.redistribute(mesh, placements(P(heads), mesh, wo.dim()))
-    rows = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
-            else Replicate() for pl in o.placements]
-    # wo's gradient from this rank's rows: partial over the row axes
-    wo_l = wo.to_local(grad_placements=[
-        Partial() if isinstance(r, Shard) else pl
-        for r, pl in zip(rows, wo.placements)])
-    o_l = o.to_local()
-    if heads is None:
-        y = torch.einsum("bshe,hed->bsd", o_l, wo_l)
-    else:
+    split = _heads_split(cfg, mesh)
+    x = constrain(x, "dp", None, None)
+    rows = [isinstance(pl, Shard) for pl in x.placements]
+    on_model = [split and n == "model" for n in mesh.mesh_dim_names]
+    w = local_weights(p, mesh, rows, on_model, _head_dim)
+    # x's gradient from this rank's heads: partial over "model"
+    xl = x.to_local(grad_placements=[
+        Partial() if m else (Shard(0) if r else Replicate())
+        for m, r in zip(on_model, rows)])
+    (o, wo), entries = body(w, xl, split)
+    if split:
         # partial sums in f32 (exact products of the operands), summed
         # across the head groups, rounded to the compute dtype once
-        y = torch.einsum("bshe,hed->bsd", o_l.float(), wo_l.float())
+        y = torch.einsum("bshe,hed->bsd", o.float(), wo.to(o.dtype).float())
         y = sum_over_group(y, mesh.get_group("model")).to(o.dtype)
-    return DTensor.from_local(y, mesh, rows, run_check=False)
+    else:
+        y = torch.einsum("bshe,hed->bsd", o, wo.to(o.dtype))
+    by_rows = [Shard(0) if r else Replicate() for r in rows]
+
+    def place(t):
+        heads = split and t.dim() == 4
+        return DTensor.from_local(t, mesh, [
+            Shard(2) if heads and m else r
+            for m, r in zip(on_model, by_rows)], run_check=False)
+
+    return (DTensor.from_local(y, mesh, by_rows, run_check=False),
+            tuple(place(t) for t in entries))
 
 
 def gqa_forward(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor
@@ -224,90 +230,41 @@ def gqa_forward(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor
     from torch.distributed.tensor import DTensor
 
     if isinstance(x, DTensor):
-        return _mesh_gqa_forward(p, cfg, x, pos)
+        def body(w, xl, split):
+            q, k, v = _qkv(w, cfg, xl, pos[:xl.shape[0]])
+            return (_flash_qblocked(q, k, v, causal=True), w["wo"]), (k, v)
+        y, kv = _mesh_block(p, cfg, x, body)
+        return y, kv
     q, k, v = _qkv(p, cfg, x, pos)
     o = _flash_qblocked(q, k, v, causal=True)
     return _out_proj(p, o), (k, v)
 
 
-def _mesh_gqa_forward(p, cfg: ModelConfig, x, pos):
-    """The GQA block of a DTensor x, rank by rank (the column- then
-    row-parallel layout): each rank takes its own rows of x and, when both
-    head counts divide "model", its own query and key heads of the
-    weights; projects, attends and projects back with the off-mesh code on
-    local tensors; the output's partial sums over head groups add across
-    "model".  At one rank the arithmetic is the off-mesh one, kernel for
-    kernel.  Returns the output placed by rows and K / V placed by rows
-    and heads."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-
-    from repro_torch.dist.context import constrain, current_mesh, \
-        sum_over_group
-    from repro_torch.dist.sharding import _model_dim
-
-    mesh = current_mesh()
-    names = mesh.mesh_dim_names
-    msz = dict(zip(names, mesh.shape)).get("model", 1)
-    split = msz > 1 and cfg.n_heads % msz == 0 and cfg.n_kv_heads % msz == 0
-    x = constrain(x, "dp", None, None)
-    rows = [Shard(0) if isinstance(pl, Shard) else Replicate()
-            for pl in x.placements]
-    on_model = [split and n == "model" for n in names]
-
-    def local(name, t):
-        """This rank's heads of one weight leaf (its head dim is the one
-        the sharding rules put on "model"); its gradient from these rows
-        is a partial sum over the row axes."""
-        hd = _model_dim([name], t.dim())
-        pl = [Shard(hd) if m and hd is not None else Replicate()
-              for m in on_model]
-        t = t.redistribute(mesh, pl)
-        return t.to_local(grad_placements=[
-            Partial() if isinstance(r, Shard) else q for r, q in zip(rows,
-                                                                     pl)])
-
-    w = {k: local(k, v) for k, v in p.items()}
-    # x's gradient from this rank's heads: partial over "model"
-    xl = x.to_local(grad_placements=[Partial() if m else r
-                                     for m, r in zip(on_model, rows)])
-    pl_ = pos.to_local() if isinstance(pos, DTensor) else pos[:xl.shape[0]]
-    q, k, v = _qkv(w, cfg, xl, pl_)
-    o = _flash_qblocked(q, k, v, causal=True)
-    if split:
-        # partial sums in f32 (exact products of the operands), summed
-        # across the head groups, rounded to the compute dtype once
-        y = torch.einsum("bshe,hed->bsd", o.float(), w["wo"].to(o.dtype)
-                         .float())
-        y = sum_over_group(y, mesh.get_group("model")).to(o.dtype)
-    else:
-        y = _out_proj(w, o)
-    by_heads = [Shard(2) if m else r for m, r in zip(on_model, rows)]
-    return (DTensor.from_local(y, mesh, rows, run_check=False),
-            tuple(DTensor.from_local(t, mesh, by_heads, run_check=False)
-                  for t in (k, v)))
-
-
 def gqa_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_k, cache_v,
-               cache_len: Union[int, torch.Tensor], compressed: bool = False):
+               cache_len: Union[int, torch.Tensor], compressed: bool = False,
+               split: Optional[Split] = None):
     """One-token decode.  x: [B,1,D]; cache_k/v: [B,Smax,KV,hd] (or QuantKV
     when compressed).  `cache_len` is the position of the new token: an
     int for the whole batch or a [B] tensor, one per row (the
     continuous-batching scheduler's ragged slots).  The caches are
-    written IN PLACE and returned: (out, cache_k, cache_v)."""
+    written IN PLACE and returned: (out, cache_k, cache_v).
+
+    `split` (the mesh decode): the caches are this rank's slice of a
+    sequence split over ``split.group``, from position ``split.first``
+    on.  The rank whose slice holds a row's position writes its K/V; the
+    softmax and the probability-times-value sum are completed across
+    the group."""
     dt = x.dtype
     B = x.shape[0]
     lens = torch.as_tensor(cache_len, device=x.device).to(torch.long)
     lens = lens.expand(B) if lens.dim() == 0 else lens
     q, k, v = _qkv(p, cfg, x, lens[:, None])
-    rows = torch.arange(B, device=x.device)
+    _write_rows_(cache_k, k, lens, compressed, split)
+    _write_rows_(cache_v, v, lens, compressed, split)
     if compressed:
-        KVC.kv_update_block_(cache_k, k, lens, seq_axis=1)
-        KVC.kv_update_block_(cache_v, v, lens, seq_axis=1)
         kf = KVC.kv_dequantize(cache_k, seq_axis=1, dtype=dt)
         vf = KVC.kv_dequantize(cache_v, seq_axis=1, dtype=dt)
     else:
-        cache_k[rows, lens] = k[:, 0]
-        cache_v[rows, lens] = v[:, 0]
         kf, vf = cache_k, cache_v
 
     Smax, KV = kf.shape[1], kf.shape[2]
@@ -315,10 +272,10 @@ def gqa_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_k, cache_v,
     scale = 1.0 / math.sqrt(cfg.head_dim)
     qh = q.reshape(B, 1, KV, g, cfg.head_dim)
     s = torch.einsum("bqkgd,bskd->bqkgs", qh.float(), kf.float()) * scale
-    valid = torch.arange(Smax, device=x.device)[None, :] <= lens[:, None]
-    s = s.masked_fill(~valid[:, None, None, None, :], -math.inf)
-    pattn = torch.softmax(s, dim=-1)
+    valid = _valid(lens, Smax, split)[:, None, None, None, :]
+    pattn = _softmax(s, valid, split)
     o = torch.einsum("bqkgs,bskd->bqkgd", pattn.to(dt).float(), vf.float())
+    o = _summed(o, split)
     o = o.reshape(B, 1, cfg.n_heads, cfg.head_dim).to(dt)
     return _out_proj(p, o), cache_k, cache_v
 
@@ -344,7 +301,23 @@ def _mla_q_entry(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
 
 def mla_forward(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
     """Training / prefill.  Returns (out, latent cache [B, S, kv_lora +
-    rope])."""
+    rope]).  On a mesh rank by rank (`_mesh_block`): the low-rank
+    projections whole, the heads of the up-projections split."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        def body(w, xl, split):
+            o, entry = _mla_attend(w, cfg, xl, pos[:xl.shape[0]])
+            return (o, w["wo"]), (entry,)
+        y, (entry,) = _mesh_block(p, cfg, x, body)
+        return y, entry
+    o, entry = _mla_attend(p, cfg, x, pos)
+    return _out_proj(p, o), entry
+
+
+def _mla_attend(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
+    """MLA's attention output (before the output projection) over the
+    heads of `p`, and the latent cache entry."""
     m = cfg.mla
     dt = x.dtype
     B, S, _ = x.shape
@@ -352,34 +325,32 @@ def mla_forward(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor):
     latent, k_rope = entry.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
     k_nope = torch.einsum("bsr,rhe->bshe", latent, p["wk_b"].to(dt))
     v = torch.einsum("bsr,rhe->bshe", latent, p["wv_b"].to(dt))
-    k_rope_b = k_rope[:, :, None, :].expand(B, S, cfg.n_heads,
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, q_nope.shape[2],
                                             m.qk_rope_dim)
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope_b], dim=-1)
-    o = _flash_qblocked(qf, kf, v, causal=True)
-    return _out_proj(p, o), entry
+    return _flash_qblocked(qf, kf, v, causal=True), entry
 
 
 def mla_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
-               cache_len: Union[int, torch.Tensor], compressed: bool = False):
+               cache_len: Union[int, torch.Tensor], compressed: bool = False,
+               split: Optional[Split] = None):
     """One-token decode.  x: [B,1,D]; cache: the [B, Smax, kv_lora+rope]
     latent cache (MLA's whole point: ~576 values per token), or its
     QuantKV form when `compressed` — the blockwise-int8 codec of the GQA
     cache, layered on the latent.  `cache_len` is the new token's
     position: an int or a [B] tensor, one per row.  The cache is written
-    IN PLACE and returned: (out, cache)."""
+    IN PLACE and returned: (out, cache).  `split`: a sequence-split
+    latent cache, as in `gqa_decode`."""
     m = cfg.mla
     dt = x.dtype
     B = x.shape[0]
     lens = torch.as_tensor(cache_len, device=x.device).to(torch.long)
     lens = lens.expand(B) if lens.dim() == 0 else lens
     q_nope, q_rope, entry = _mla_q_entry(p, cfg, x, lens[:, None])
-    if compressed:
-        KVC.kv_update_block_(cache, entry, lens, seq_axis=1)
-        cache_f = KVC.kv_dequantize(cache, seq_axis=1, dtype=dt)
-    else:
-        cache[torch.arange(B, device=x.device), lens] = entry[:, 0]
-        cache_f = cache
+    _write_rows_(cache, entry, lens, compressed, split)
+    cache_f = (KVC.kv_dequantize(cache, seq_axis=1, dtype=dt) if compressed
+               else cache)
 
     lat_c = cache_f[..., :m.kv_lora_rank]
     kr_c = cache_f[..., m.kv_lora_rank:]
@@ -389,9 +360,81 @@ def mla_decode(p, cfg: ModelConfig, x: torch.Tensor, cache,
     s = torch.einsum("bqhe,bshe->bqhs", q_nope.float(), k_nope.float())
     s = s + torch.einsum("bqhe,bse->bqhs", q_rope.float(), kr_c.float())
     s = s * scale
-    Smax = cache_f.shape[1]
-    valid = torch.arange(Smax, device=x.device)[None, :] <= lens[:, None]
-    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
-    pattn = torch.softmax(s, dim=-1)
+    valid = _valid(lens, cache_f.shape[1], split)[:, None, None, :]
+    pattn = _softmax(s, valid, split)
     o = torch.einsum("bqhs,bshe->bqhe", pattn.to(dt).float(), v.float())
+    o = _summed(o, split)
     return _out_proj(p, o.to(dt)), cache
+
+
+# ---------------------------------------------------------------------------
+# decode: the cache write and the softmax, whole or sequence-split
+# ---------------------------------------------------------------------------
+
+def _write_rows_(cache, new, lens, compressed: bool, split: Optional[Split]):
+    """Write `new` [B, 1, ...] at each row's position `lens` into the
+    cache, IN PLACE.  Under `split` the cache is this rank's slice and
+    only the rank whose slice holds a row's position changes that row;
+    the other ranks keep theirs (the same shapes on every rank, no
+    data-dependent indexing)."""
+    B = new.shape[0]
+    rows = torch.arange(B, device=new.device)
+    if split is None:
+        if compressed:
+            KVC.kv_update_block_(cache, new, lens, seq_axis=1)
+        else:
+            cache[rows, lens] = new[:, 0]
+        return
+    S_l = (cache.q if compressed else cache).shape[1]
+    local = lens - split.first
+    mine = (local >= 0) & (local < S_l)
+    pos = local.clamp(0, S_l - 1)
+    if not compressed:
+        old = cache[rows, pos]
+        keep = (~mine).reshape((B,) + (1,) * (old.dim() - 1))
+        cache[rows, pos] = torch.where(keep, old, new[:, 0].to(cache.dtype))
+        return
+    q, scale = cache.q, cache.scale
+    blk = pos // KVC.SEQ_BLOCK
+    qb = q.unflatten(1, (S_l // KVC.SEQ_BLOCK, KVC.SEQ_BLOCK))
+    old_q, old_s = qb[rows, blk].clone(), scale[rows, blk].clone()
+    KVC.kv_update_block_(cache, new, pos, seq_axis=1)
+    keep_s = (~mine).reshape((B,) + (1,) * (old_s.dim() - 1))
+    qb[rows, blk] = torch.where(keep_s[:, None], old_q, qb[rows, blk])
+    scale[rows, blk] = torch.where(keep_s, old_s, scale[rows, blk])
+
+
+def _valid(lens, S: int, split: Optional[Split]):
+    """[B, S]: which of the cache's S positions (from ``split.first``
+    on, under `split`) each row attends to."""
+    pos = torch.arange(S, device=lens.device)
+    if split is not None:
+        pos = split.first + pos
+    return pos[None, :] <= lens[:, None]
+
+
+def _softmax(s, valid, split: Optional[Split]):
+    """softmax over the last dim of the scores `s` at the `valid` keys.
+    Under `split` each rank of ``split.group`` holds its own slice of
+    the keys: the global max and sum by all-reduce, then this slice's
+    probabilities."""
+    import torch.distributed as dist
+
+    s = s.masked_fill(~valid, -math.inf)
+    if split is None:
+        return torch.softmax(s, dim=-1)
+    m = s.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=split.group)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    dist.all_reduce(denom, group=split.group)
+    return p / denom
+
+
+def _summed(t, split: Optional[Split]):
+    """`t` summed over ``split.group`` (in place), or `t` itself."""
+    import torch.distributed as dist
+
+    if split is not None:
+        dist.all_reduce(t, group=split.group)
+    return t

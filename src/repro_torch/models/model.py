@@ -38,7 +38,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import dense_init, rms_norm, swiglu
+from .layers import Split, dense_init, rms_norm, swiglu
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +423,11 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     """token: [B,1] integer; caches as from init_caches/prefill.
     `cache_len`: the new token's position, an int or a [B] tensor (one
     per row).  Writes the new K/V, latents and Mamba states into
-    `caches` IN PLACE.  Returns (logits [B,1,V] f32, caches)."""
+    `caches` IN PLACE.  Returns (logits [B,1,V] f32, caches).  A DTensor
+    `token` takes the mesh decode (`mesh_decode_step`)."""
+    if _is_dtensor(token):
+        return mesh_decode_step(params, cfg, token, caches, cache_len,
+                                compute_dtype, compressed_kv)
     x = params["embed"][token].to(compute_dtype)
     # the positions go to the device once per step, not once per layer
     lens = torch.as_tensor(cache_len, device=x.device)
@@ -451,3 +455,137 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     logits = x @ lm_head_of(params, cfg).to(compute_dtype)
     return logits.float(), caches
+
+
+# ---------------------------------------------------------------------------
+# decode on a mesh
+# ---------------------------------------------------------------------------
+
+def _gather_period(t, i: int):
+    """Period `i` of the stacked DTensor `t` (its period dim is never
+    split), gathered whole on this rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = t.device_mesh
+    if all(n == 1 or not isinstance(p, Shard)
+           for n, p in zip(mesh.shape, t.placements)):
+        return t.to_local()[i]                # whole here already
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in t.placements]
+    one = DTensor.from_local(t.to_local()[i], t.device_mesh, pl,
+                             run_check=False)
+    return one.redistribute(t.device_mesh,
+                            [Replicate()] * t.device_mesh.ndim).to_local()
+
+
+def _split_of(t, dim: int) -> Optional[Split]:
+    """This rank's slice of the DTensor `t` along `dim` when a mesh dim
+    of more than one rank splits it, else None (the dim is whole
+    here)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    on = [i for i, p in enumerate(t.placements)
+          if isinstance(p, Shard) and p.dim == dim and mesh.shape[i] > 1]
+    if not on:
+        return None
+    assert len(on) == 1, t.placements
+    i = on[0]
+    n = t.to_local().shape[dim]
+    return Split(mesh.get_coordinate()[i] * n, mesh.get_group(i))
+
+
+def mesh_decode_step(params, cfg: ModelConfig, token, caches: DecodeCaches,
+                     cache_len, compute_dtype=torch.bfloat16,
+                     compressed_kv: bool = False):
+    """`decode_step` on a mesh, with the parameters placed FSDP
+    (``sharding.param_shardings(fsdp=True)``) and the caches placed by
+    ``sharding.cache_specs``; `token` [B, 1] is a DTensor placed by rows
+    over the data-parallel axes (or replicated, for one long sequence).
+
+    Each rank decodes its own rows.  The weights are gathered one layer
+    at a time (the FSDP forward), never all at once; the caches stay
+    where they are and are written IN PLACE: attention (GQA K/V, MLA
+    latents) runs against each rank's slice of the sequence and
+    completes its softmax across the ranks that split it, a Mamba state
+    updates its own heads and conv channels.  Where no mesh dim splits
+    a cache, its decode is the off-mesh one.  Returns (logits [B, 1, V]
+    f32 placed by rows and, when the head splits it, vocabulary over
+    "model", caches)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist.context import use_mesh
+
+    mesh = token.device_mesh
+    params = cast_params(params, compute_dtype)
+    rows = [isinstance(p, Shard) for p in token.placements]
+    x = _mesh_embed(params["embed"], token).redistribute(
+        mesh, [Shard(0) if r else Replicate() for r in rows])
+    x = x.to_local().to(compute_dtype)
+    lens = torch.as_tensor(cache_len, device=x.device)
+    with use_mesh(None):
+        for period in range(cfg.n_periods):
+            for kind, layer, entry in zip(cfg.pattern, params["layers"],
+                                          caches.entries):
+                p = tree_map(lambda t: _gather_period(t, period), layer)
+                h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+                a = _mesh_decode_mixer(p, cfg, kind, h, entry, period, lens,
+                                       compressed_kv)
+                x = _ffn(p, cfg, kind, x + a)
+                del p
+        norm = params["out_norm"].redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local()
+        x = rms_norm(x, norm, cfg.norm_eps)
+    return mesh_logits(params, cfg, x, rows, compute_dtype), caches
+
+
+def mesh_logits(params, cfg: ModelConfig, x, rows, compute_dtype):
+    """f32 logits of this rank's rows `x` [b, ..., D] (a plain tensor;
+    `rows`: per mesh dim, whether it splits the rows) against the head
+    gathered over every axis but the "model" axis that splits its
+    vocabulary; placed by rows and, where the head splits it, vocabulary
+    over "model" (the reference's ``(dp, "model")`` logits)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    head = lm_head_of(params, cfg)
+    mesh = head.device_mesh
+    keep = [p if isinstance(p, Shard) and p.dim == 1
+            and n == "model" else Replicate()
+            for n, p in zip(mesh.mesh_dim_names, head.placements)]
+    head = head.redistribute(mesh, keep).to_local()
+    logits = (x @ head.to(compute_dtype)).float()
+    out = [Shard(logits.dim() - 1) if isinstance(k, Shard) else
+           (Shard(0) if r else Replicate()) for k, r in zip(keep, rows)]
+    return DTensor.from_local(logits, mesh, out, run_check=False)
+
+
+def _local_period(c, i: int):
+    """Period `i`'s view of this rank's shard of a stacked cache DTensor
+    (a QuantKV or MambaState field by field); writes land in the
+    DTensor."""
+    if isinstance(c, tuple):
+        return type(c)(*(t.to_local()[i] for t in c))
+    return c.to_local()[i]
+
+
+def _mesh_decode_mixer(p, cfg: ModelConfig, kind: str, h, entry, period,
+                       lens, compressed_kv: bool):
+    """One position's attention or Mamba step of `mesh_decode_step`
+    against its cache entry (DTensors placed by the cache rule)."""
+    if not kind.startswith("attn"):
+        st = _local_period(entry, period)
+        a, new = ssm_mod.mamba_decode(p["mamba"], cfg, h, st,
+                                      heads=_split_of(entry.h, 2),
+                                      channels=_split_of(entry.conv, 3))
+        st.h.copy_(new.h)
+        st.conv.copy_(new.conv)
+        return a
+    first = entry if cfg.mla else entry[0]
+    split = _split_of(first.q if compressed_kv else first, 2)
+    if cfg.mla:
+        return attn.mla_decode(p["attn"], cfg, h,
+                               _local_period(entry, period), lens,
+                               compressed=compressed_kv, split=split)[0]
+    ck, cv = (_local_period(t, period) for t in entry)
+    return attn.gqa_decode(p["attn"], cfg, h, ck, cv, lens,
+                           compressed=compressed_kv, split=split)[0]

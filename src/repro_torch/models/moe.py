@@ -224,6 +224,43 @@ def _mesh_routed(p, cfg: ModelConfig, x):
     return DTensor.from_local(out, mesh, rows, run_check=False)
 
 
+def _expert_products(disp, w_gate, w_up, w_down):
+    """The per-expert SwiGLU of the dispatch [B, E, cap, D]."""
+    dt = disp.dtype
+    h_g = torch.einsum("becd,edf->becf", disp, w_gate.to(dt))
+    h_u = torch.einsum("becd,edf->becf", disp, w_up.to(dt))
+    return torch.einsum("becf,efd->becd", F.silu(h_g) * h_u, w_down.to(dt))
+
+
+def _experts(disp, w_gate, w_up, w_down):
+    """`_expert_products`; on a mesh rank by rank: each rank multiplies
+    its own rows and experts of the dispatch (placed rows over the
+    data-parallel axes, experts over "model") with its experts' weights
+    gathered whole over every other axis, by the off-mesh einsums on
+    local tensors.  DTensor's einsum would view a non-contiguous
+    operand it cannot view at full width (deepseek-v2-236b's 10 local
+    experts of 160)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(disp, DTensor):
+        return _expert_products(disp, w_gate, w_up, w_down)
+    mesh = disp.device_mesh
+    # the weights' expert dim (0) as the dispatch's (1) is placed
+    on = [Shard(0) if isinstance(pl, Shard) and pl.dim == 1 else Replicate()
+          for pl in disp.placements]
+    rows = [isinstance(pl, Shard) and pl.dim == 0 for pl in disp.placements]
+
+    def local(w):
+        w = w.redistribute(mesh, on)
+        # its gradient from this rank's rows: partial over the row axes
+        return w.to_local(grad_placements=[
+            Partial() if r else pl for r, pl in zip(rows, on)])
+
+    out = _expert_products(disp.to_local(), local(w_gate), local(w_up),
+                           local(w_down))
+    return DTensor.from_local(out, mesh, disp.placements, run_check=False)
+
+
 def _routed(p, cfg: ModelConfig, x, router, to_experts, to_rows):
     """Route x [B,S,D] (a plain tensor: all of x off-mesh, the rank's own
     rows on a mesh) with `router`, dispatch, run the experts of `p`,
@@ -248,10 +285,7 @@ def _routed(p, cfg: ModelConfig, x, router, to_experts, to_rows):
     disp = disp[:, :E * cap].reshape(B, E, cap, D)
     disp = to_experts(disp)                           # dispatch all-to-all
 
-    h_g = torch.einsum("becd,edf->becf", disp, p["w_gate"].to(dt))
-    h_u = torch.einsum("becd,edf->becf", disp, p["w_up"].to(dt))
-    eo = torch.einsum("becf,efd->becd", F.silu(h_g) * h_u,
-                      p["w_down"].to(dt))
+    eo = _experts(disp, p["w_gate"], p["w_up"], p["w_down"])
     eo = to_rows(eo).reshape(B, E * cap, D)           # combine all-to-all
 
     # combine: each kept slot's output, weighted by its gate

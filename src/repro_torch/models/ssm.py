@@ -17,13 +17,13 @@ results differ by up to two ulp (their libms' `exp` and `log1p`).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import dense_init, rms_norm
+from .layers import Split, dense_init, rms_norm
 
 
 def init_mamba_params(gen: torch.Generator, cfg: ModelConfig, device=None):
@@ -129,7 +129,42 @@ def mamba_forward(p, cfg: ModelConfig, u: torch.Tensor
 
     Long sequences run as an outer loop over segments (SEG_CHUNKS·chunk
     tokens) carrying the SSM state — the parallel SSD form within each
-    segment, linear recurrence across segments."""
+    segment, linear recurrence across segments.
+
+    On a mesh (u a DTensor) the block runs rank by rank: each rank takes
+    its own rows of u and the block's weights gathered whole, and runs
+    the off-mesh code on local tensors; the output and the state are
+    placed by rows.  DTensor's own propagation of the SSD products
+    reaches a data-dependent scalar in the backward at mamba2-1.3b's
+    width."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(u, DTensor):
+        return _mesh_mamba_forward(p, cfg, u)
+    return _mamba_forward(p, cfg, u)
+
+
+def _mesh_mamba_forward(p, cfg: ModelConfig, u):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.dist.context import constrain
+
+    from .layers import local_weights
+
+    u = constrain(u, "dp", None, None)
+    mesh = u.device_mesh
+    rows = [isinstance(pl, Shard) for pl in u.placements]
+    w = local_weights(p, mesh, rows, [False] * mesh.ndim)
+    out, st = _mamba_forward(w, cfg, u.to_local())
+    by_rows = [Shard(0) if r else Replicate() for r in rows]
+
+    def place(t):
+        return DTensor.from_local(t, mesh, by_rows, run_check=False)
+    return place(out), MambaState(place(st.h), place(st.conv))
+
+
+def _mamba_forward(p, cfg: ModelConfig, u: torch.Tensor
+                   ) -> Tuple[torch.Tensor, MambaState]:
     s = cfg.ssm
     dt_ = u.dtype
     B_, S, D = u.shape
@@ -181,10 +216,18 @@ def mamba_forward(p, cfg: ModelConfig, u: torch.Tensor
     return out, MambaState(h, conv_tail)
 
 
-def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, state: MambaState
+def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, state: MambaState,
+                 heads: Optional[Split] = None,
+                 channels: Optional[Split] = None
                  ) -> Tuple[torch.Tensor, MambaState]:
     """u: [B,1,D]; the O(1) recurrent step.  Returns (out, new state);
-    `state` is not written."""
+    `state` is not written.
+
+    `heads` / `channels` (the mesh decode): `state` holds this rank's
+    heads of ``h`` / conv channels of ``conv``, from ``first`` on, and
+    the other ranks of ``group`` the rest.  The weights are whole; the
+    conv output and the SSM output are gathered across the groups, and
+    the new state is this rank's part."""
     s = cfg.ssm
     dt_ = u.dtype
     B_ = u.shape[0]
@@ -192,10 +235,15 @@ def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, state: MambaState
     z, x, Bm, Cm, dtp, d_in, H, N = _split_proj(zxbcdt, cfg)
 
     conv_in = torch.cat([x, Bm, Cm], dim=-1)                      # [B,1,C]
+    w, b = p["conv_w"], p["conv_b"]
+    if channels:
+        c = slice(channels.first, channels.first + state.conv.shape[-1])
+        conv_in, w, b = conv_in[..., c], w[:, c], b[c]
     window = torch.cat([state.conv, conv_in], dim=1)              # [B,K,C]
-    w = p["conv_w"].to(dt_)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, w)
-                      + p["conv_b"].to(dt_))[:, None, :]
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, w.to(dt_))
+                      + b.to(dt_))[:, None, :]
+    if channels:
+        conv_out = _gather_last(conv_out, channels.group)
     x, Bm, Cm = torch.split(conv_out, [d_in, N, N], dim=-1)
 
     P = s.head_dim
@@ -206,12 +254,28 @@ def mamba_decode(p, cfg: ModelConfig, u: torch.Tensor, state: MambaState
     Bv = Bm[:, 0].float()                                         # [B,N]
     Cv = Cm[:, 0].float()
     xdt = xh.float() * dt[..., None]
+    D = p["D"]
+    if heads:
+        hs = slice(heads.first, heads.first + state.h.shape[1])
+        xh, xdt, a, D = xh[:, hs], xdt[:, hs], a[:, hs], D[hs]
 
     h = state.h * a[:, :, None, None] \
         + torch.einsum("bn,bhp->bhnp", Bv, xdt)
     y = torch.einsum("bn,bhnp->bhp", Cv, h)
-    y = y + xh.float() * p["D"][None, :, None]
+    y = y + xh.float() * D[None, :, None]
+    if heads:
+        y = _gather_last(y.movedim(1, -1), heads.group).movedim(-1, 1)
     y = y.reshape(B_, 1, d_in).to(dt_)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(dt_)
     return out, MambaState(h, window[:, 1:, :])
+
+
+def _gather_last(t, group):
+    """`t`'s slices along its last dim from every rank of `group`, in
+    rank order, joined."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)

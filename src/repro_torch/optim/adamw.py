@@ -63,6 +63,13 @@ def _quantize(x: torch.Tensor):
     jitted reference's scale ``max|block| * f32(1/127)``."""
     if not _quantizable(x):
         return x.to(torch.float32, copy=True)
+    return _quantize_blocks(x)
+
+
+def _quantize_blocks(x: torch.Tensor) -> QTensor:
+    """`x` in int8 blocks of QBLOCK along its last dim (a whole number of
+    them): a whole leaf, or a rank's shard of a leaf that is
+    quantizable."""
     nb = x.shape[-1] // QBLOCK
     xf = x.to(torch.float32).reshape(x.shape[:-1] + (nb, QBLOCK))
     amax = xf.abs().amax(dim=-1)
@@ -83,8 +90,8 @@ def _dequantize(qt, shape) -> torch.Tensor:
 def _local(t):
     """A DTensor's local shard (a view: in-place writes land in the
     DTensor); any other tensor or QTensor as it is.  The update is
-    elementwise and every leaf of a parameter (grad, moments) shares its
-    placements, so each rank updates its own shard."""
+    elementwise and runs where the moments live (`update`), so each
+    rank updates its own shard."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(t, QTensor):
@@ -92,25 +99,35 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def moment_placements(p):
+    """The placements of the int8 moments of the DTensor `p`
+    (`sharding.quantized_moment_spec` of its spec): its own, unless they
+    split the last dim into shards that are not whole QBLOCKs."""
+    from repro_torch.dist.sharding import (mesh_shape, placements,
+                                           quantized_moment_spec, spec_of)
+
+    mesh = p.device_mesh
+    spec = quantized_moment_spec(spec_of(p), p.shape, mesh_shape(mesh))
+    return tuple(placements(spec, mesh, p.dim()))
+
+
 def _zero_quantized(p):
-    """Zero int8 moments of `p`: on a DTensor, quantized shard by shard
-    and placed like `p` (its blocks along the last dim are the global
-    blocks only when the local last dim stays block-aligned)."""
+    """Zero int8 moments of `p`.  On a DTensor each rank quantizes its
+    own shard, placed by `moment_placements`, so that its blocks are
+    the global array's: codes and scales are the reference's
+    global-array `_quantize`, bit for bit."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(p, DTensor):
         return _quantize(torch.zeros_like(p))
-    local = torch.zeros_like(p.to_local())
-    if _quantizable(p) and not _quantizable(local):
-        raise NotImplementedError(
-            f"int8 moments of a {tuple(p.shape)} leaf whose local shard "
-            f"{tuple(local.shape)} splits a {QBLOCK}-block")
-    qt = _quantize(local)
-    if not isinstance(qt, QTensor):
-        return DTensor.from_local(qt, p.device_mesh, p.placements,
-                                  run_check=False)
-    return QTensor(*(DTensor.from_local(t, p.device_mesh, p.placements,
-                                        run_check=False) for t in qt))
+    if not _quantizable(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    pl = moment_placements(p)
+    local = torch.zeros_like(p.redistribute(p.device_mesh, pl).to_local(),
+                             dtype=torch.float32)
+    return QTensor(*(DTensor.from_local(t, p.device_mesh, pl,
+                                        run_check=False)
+                     for t in _quantize_blocks(local)))
 
 
 def _device_of(tree) -> torch.device:
@@ -156,7 +173,7 @@ def _leaf_(g: torch.Tensor, m, v, p: torch.Tensor, cfg: AdamWConfig,
     p.sub_(upd)
     for moment, f in ((m, m_f), (v, v_f)):
         if isinstance(moment, QTensor):
-            q = _quantize(f)
+            q = _quantize_blocks(f)
             moment.q.copy_(q.q)
             moment.scale.copy_(q.scale)
 
@@ -177,11 +194,22 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig):
     flat_m = leaves_up_to(params, state.m)
     flat_v = leaves_up_to(params, state.v)
     for g, m, v, p in zip(pop_leaves(grads), flat_m, flat_v, flat_p):
-        if getattr(g, "placements", None) != getattr(p, "placements", None):
-            g = g.redistribute(p.device_mesh, p.placements)
-        _leaf_(_local(g), _local(m), _local(v), _local(p), cfg,
+        # the update runs where the moments live: the parameter's
+        # placements, or int8 moments' own (`moment_placements`), with
+        # the parameter moved there and its new values moved back
+        at = getattr(m.q if isinstance(m, QTensor) else m, "placements",
+                     None)
+        if getattr(g, "placements", None) != at:
+            g = g.redistribute(p.device_mesh, at)
+        pm = p
+        if getattr(p, "placements", None) != at:
+            pm = p.redistribute(p.device_mesh, at)
+        _leaf_(_local(g), _local(m), _local(v), _local(pm), cfg,
                b1c.to(p.device), b2c.to(p.device))
-        del g
+        if pm is not p:
+            _local(p).copy_(_local(pm.redistribute(p.device_mesh,
+                                                   p.placements)))
+        del g, pm
     return params, AdamWState(c, state.m, state.v)
 
 

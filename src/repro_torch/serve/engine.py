@@ -19,13 +19,15 @@ as per-slab wire containers, Mamba/SSD state as lossless whole tensors.
 
 Under a mesh (``dist.context.use_mesh``) prefill runs the DTensor forward
 (params placed by ``sharding.param_shardings``, the prompt by
-``resolve_sharding(mesh, shape, "data")``) and keeps the caches on the
-mesh; the handoff gathers each cache tensor and encodes it whole (the
+``resolve_sharding(mesh, shape, "data")``, modality inputs by rows) and
+places the caches by the decode cache rule (`place_caches`: batch over
+the data-parallel axes, sequence over "model", Mamba heads over
+"model"); the handoff gathers each cache tensor and encodes it whole (the
 containers are what crosses to the other mesh); ``reshard_caches`` places
-the arriving caches on the decode mesh with ``(None, "data", "model")``;
-and ``decode_tokens`` runs each rank's own rows with the weights gathered
-once per call (a data-parallel decode) and returns the tokens placed by
-rows.
+the arriving caches on the decode mesh by the same rule; and
+``decode_tokens`` runs `models.model.mesh_decode_step` on each rank's own
+rows, the weights gathered one layer at a time inside the step, and
+returns the tokens placed by rows.
 
 Sampling: greedy (``temperature=0``) is the reference's, token for token.
 Temperature sampling draws from ``softmax(logits / T)`` with a
@@ -79,6 +81,9 @@ def prefill(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
     if mesh is not None and not _is_dtensor(tokens):
         tokens = dist_ctx.resolve_sharding(mesh, tokens.shape,
                                            "data").place(tokens)
+    if mesh is not None and extra:
+        from repro_torch.dist.sharding import place_extra
+        extra = place_extra(extra, mesh)
     logits, caches = M.forward(params, cfg, tokens, extra,
                                compute_dtype=scfg.compute_dtype,
                                collect_caches=True)
@@ -114,7 +119,52 @@ def prefill(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
             entries.append(extend(c))
         else:
             entries.append((extend(c[0]), extend(c[1])))
-    return logits[:, -1, :], M.DecodeCaches(tuple(entries)), S_total
+    caches = M.DecodeCaches(tuple(entries))
+    if mesh is not None:
+        caches = place_caches(caches, mesh, _long_ctx(mesh, B))
+    return logits[:, -1, :], caches, S_total
+
+
+def _long_ctx(mesh, batch: int) -> bool:
+    """Whether a batch on `mesh` runs as one long context: its rows do
+    not split over the data-parallel axes, so the caches' sequence
+    does."""
+    from repro_torch.dist.sharding import dp_axes, mesh_shape
+
+    sizes = mesh_shape(mesh)
+    n = 1
+    for a in dp_axes(mesh):
+        n *= int(sizes[a])
+    return batch % n != 0
+
+
+def place_caches(caches: M.DecodeCaches, mesh, long_ctx: bool = False):
+    """`caches` placed on `mesh` by the decode cache rule
+    (``sharding.cache_spec``), a dim that does not divide its axes
+    replicated; a QuantKV's codes follow its scales, so each rank's
+    slice of the sequence is a whole number of scale blocks."""
+    from repro_torch.dist.sharding import (cache_spec, dp_axes, mesh_shape,
+                                           P)
+    from repro_torch.tree import leaves_with_path, rebuild
+
+    sizes, dp = mesh_shape(mesh), dp_axes(mesh)
+
+    def sharding(path, shape):
+        return dist_ctx.resolve_sharding(mesh, shape, *cache_spec(
+            path, shape, sizes, dp, long_ctx))
+
+    out = []
+    flat = list(leaves_with_path(caches))
+    scales = {path[:-1]: leaf for path, leaf in flat
+              if str(path[-1]) == ".scale"}
+    for path, leaf in flat:
+        if str(path[-1]) == ".q" and path[:-1] in scales:
+            sh = sharding(path, tuple(scales[path[:-1]].shape))
+            sh = type(sh)(mesh, P(*sh.spec))
+        else:
+            sh = sharding(path, tuple(leaf.shape))
+        out.append(sh.place(leaf))
+    return rebuild(caches, iter(out))
 
 
 def _is_dtensor(x) -> bool:
@@ -221,26 +271,33 @@ def decode_tokens(params, cfg: ModelConfig, scfg: ServeConfig,
 
 def _mesh_decode_tokens(mesh, params, cfg, scfg, last_logits, caches,
                         plen, n_new, generator):
-    """`decode_tokens` on `mesh`: the weights gathered once, the caches
-    and logits cut to this rank's rows, the plain loop, the tokens placed
-    by rows."""
+    """`decode_tokens` on `mesh` with `M.mesh_decode_step`: the weights
+    stay placed (gathered a layer at a time inside the step), the caches
+    are placed by the decode cache rule (`place_caches`), each rank
+    picks its own rows' tokens from logits gathered over the
+    vocabulary, and the tokens come back placed by rows."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.tree import tree_map
-
-    whole = tree_map(lambda t: t.full_tensor() if _is_dtensor(t) else t,
-                     M.cast_params(params, scfg.compute_dtype))
-    rows = M.DecodeCaches(tree_map(
-        lambda t: _rows_local(t, 1) if _is_dtensor(t) else t,
-        caches.entries))
-    logits = (_rows_local(last_logits, 0) if _is_dtensor(last_logits)
-              else last_logits)
-    with dist_ctx.use_mesh(None):
-        toks = decode_tokens(whole, cfg, scfg, logits, rows, plen, n_new,
-                             generator=generator)
-    sh = dist_ctx.resolve_sharding(mesh, (last_logits.shape[0], n_new),
-                                   "dp")
-    return DTensor.from_local(toks, mesh, sh.placements(2), run_check=False)
+    B = last_logits.shape[0]
+    rows = dist_ctx.resolve_sharding(mesh, (B, 1), "dp")
+    if not _is_dtensor(last_logits):
+        last_logits = dist_ctx.resolve_sharding(
+            mesh, last_logits.shape, "dp").place(last_logits)
+    params = M.cast_params(params, scfg.compute_dtype)
+    caches = M.clone_caches(place_caches(caches, mesh,
+                                         _long_ctx(mesh, B)))
+    tok = pick_token(_rows_local(last_logits, 0), generator, scfg)
+    outs = []
+    for i in range(n_new):
+        outs.append(tok)
+        tok_d = DTensor.from_local(tok[:, None], mesh, rows.placements(2),
+                                   run_check=False)
+        logits, caches = M.decode_step(params, cfg, tok_d, caches, plen + i,
+                                       compute_dtype=scfg.compute_dtype,
+                                       compressed_kv=scfg.compressed_kv)
+        tok = pick_token(_rows_local(logits, 0)[:, 0, :], generator, scfg)
+    return DTensor.from_local(torch.stack(outs, dim=1), mesh,
+                              rows.placements(2), run_check=False)
 
 
 def generate(params, cfg: ModelConfig, prompt, n_new: int,
@@ -347,9 +404,9 @@ def encode_handoff(caches: M.DecodeCaches, cfg: ModelConfig,
 def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
                    *, mesh=None, device=None) -> M.DecodeCaches:
     """Phase 3: adopt the handoff Containers as decode caches under the
-    decode mesh (default: the current ``dist.context`` mesh), placed with
-    ``(None, "data", "model")`` (Mamba state ``(None, "data")``), or on
-    `device` without a mesh (default CUDA).
+    decode mesh (default: the current ``dist.context`` mesh), placed by
+    the decode cache rule (`place_caches`), or on `device` without a
+    mesh (default CUDA).
 
     int8-block wire + compressed decode target: the payload (q + block
     scales) IS the in-memory QuantKV format — it is concatenated in
@@ -369,13 +426,6 @@ def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
         device = mesh.device_type
     dev = input_device(None, device)
 
-    def put(x, *spec):
-        if mesh is None:
-            return x
-        if isinstance(x, KVC.QuantKV):
-            return KVC.QuantKV(*(put(t, *spec) for t in x))
-        return dist_ctx.resolve_sharding(mesh, x.shape, *spec).place(x)
-
     # reset at call start (same contract as LAST_HANDOFF_STATS)
     LAST_RESHARD_STATS.clear()
     LAST_RESHARD_STATS.update({"tensors": 0, "adopted_quantkv": 0,
@@ -383,9 +433,9 @@ def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
     stats = LAST_RESHARD_STATS
 
     def arrive(parts):
-        """One cache tensor's wire containers -> its decode-side form,
-        placed on the decode mesh."""
-        return put(restore(parts), None, "data", "model")
+        """One cache tensor's wire containers -> its decode-side form
+        (placed on the decode mesh with the others, below)."""
+        return restore(parts)
 
     def restore(parts):
         stats["tensors"] += 1
@@ -432,7 +482,11 @@ def reshard_caches(handoff: KVHandoff, cfg: ModelConfig, scfg: ServeConfig,
             for parts in entry:
                 stats["tensors"] += 1
                 stats["decoded"] += 1
-                vals.append(put(codecs.decode(parts[0], device=dev),
-                                None, "data"))
+                vals.append(codecs.decode(parts[0], device=dev))
             entries.append(ssm_mod.MambaState(*vals))
-    return M.DecodeCaches(tuple(entries))
+    caches = M.DecodeCaches(tuple(entries))
+    if mesh is None:
+        return caches
+    from repro_torch.tree import leaves
+    batch = leaves(caches)[0].shape[1]           # every leaf [nP, B, ...]
+    return place_caches(caches, mesh, _long_ctx(mesh, batch))

@@ -9,7 +9,8 @@ over it, the port with a loop over the pods, and both reduce them with
 
 On a mesh (``dist.context.use_mesh``) params, moments and tokens are
 DTensors and the weight-gather and all-to-all hooks are armed with
-`TrainConfig`'s codecs.  With a "pod" axis, each rank runs its own pod's
+`TrainConfig`'s codecs; modality inputs go by rows
+(`sharding.place_extra`).  With a "pod" axis, each rank runs its own pod's
 microbatched grads on the sub-mesh ``mesh["data", "model"]`` under
 ``dp_axes_override(("data",))`` (the reference's
 ``vmap(..., spmd_axis_name="pod")``), and the pod mean is an explicit
@@ -37,7 +38,8 @@ from repro_torch.dist.context import (constrain, constrain_like_params,
                                       sum_over_group, use_a2a_compress,
                                       use_mesh, use_param_specs,
                                       use_weight_compress)
-from repro_torch.dist.sharding import NamedSharding, P, batch_spec
+from repro_torch.dist.sharding import (NamedSharding, P, batch_spec,
+                                       place_extra)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -152,8 +154,7 @@ def _value_and_grad(params, cfg: ModelConfig, tokens, extra):
 def _split_extra(extra, nmb: int, i: int):
     if not extra:
         return None
-    return {k: a.reshape(nmb, a.shape[0] // nmb, *a.shape[1:])[i]
-            for k, a in extra.items()}
+    return {k: _split_rows(a, nmb)[i] for k, a in extra.items()}
 
 
 def _split_rows(tokens, nmb: int):
@@ -186,18 +187,19 @@ def _mesh_grads(cfg: ModelConfig, tcfg: TrainConfig, params, tokens,
 
     mesh = current_mesh()
     names = tuple(mesh.mesh_dim_names)
+    podded = tokens.dim() == 3
     if not isinstance(tokens, DTensor):
-        tokens = NamedSharding(mesh, batch_spec(
-            mesh, podded=tokens.dim() == 3)).place(tokens)
-    if extra:
-        raise NotImplementedError("modality inputs on a mesh")
+        tokens = NamedSharding(mesh, batch_spec(mesh, podded)).place(tokens)
+    extra = place_extra(extra, mesh, podded)
     if "pod" not in names:
-        if tokens.dim() == 3:                    # podded layout, no pods
+        if podded:                               # podded layout, no pods
             tokens = tokens.reshape(-1, tokens.shape[-1])
+            extra = extra and {k: a.reshape(-1, *a.shape[2:])
+                               for k, a in extra.items()}
         with use_weight_compress(tcfg.weight_compress), \
                 use_a2a_compress(tcfg.a2a_compress):
             loss, grads = _microbatched_grads(params, cfg, tcfg, tokens,
-                                              None)
+                                              extra)
         return _plain_loss(loss), grads
     # one pod's grads on the sub-mesh, then the mean across pods
     ip = names.index("pod")
@@ -211,18 +213,22 @@ def _mesh_grads(cfg: ModelConfig, tcfg: TrainConfig, params, tokens,
         pl = t.placements[:ip] + (Replicate(),) + t.placements[ip:]
         return DTensor.from_local(t.to_local(), mesh, pl, run_check=False)
 
-    local = tokens.to_local()
-    if tokens.dim() == 3:                        # [1, rows, S]: our pod's
-        local = local[0]
-    pod_tokens = DTensor.from_local(
-        local, sub, NamedSharding(sub, P("data")).placements(2),
-        run_check=False)
+    def to_pod(t):
+        """Our pod's rows of `t`, placed by rows on the sub-mesh."""
+        local = t.to_local()
+        if podded:                               # [1, rows, ...]: our pod's
+            local = local[0]
+        return DTensor.from_local(
+            local, sub, NamedSharding(sub, P("data")).placements(
+                local.dim()), run_check=False)
+
     with use_mesh(sub), use_param_specs(current_param_specs()), \
             dp_axes_override(("data",)), \
             use_weight_compress(tcfg.weight_compress), \
             use_a2a_compress(tcfg.a2a_compress):
-        loss, grads = _microbatched_grads(tree_map(to_sub, params), cfg,
-                                          tcfg, pod_tokens, None)
+        loss, grads = _microbatched_grads(
+            tree_map(to_sub, params), cfg, tcfg, to_pod(tokens),
+            extra and {k: to_pod(a) for k, a in extra.items()})
     loss = _plain_loss(loss).clone()
     dist.all_reduce(loss, group=mesh.get_group("pod"))
     loss = loss * (1.0 / mesh.shape[ip])

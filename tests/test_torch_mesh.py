@@ -58,20 +58,34 @@ def _ref_state(ref, arch, quantized):
 
 @pytest.mark.parametrize("arch", sorted(tconfigs.ARCHS))
 def test_param_specs_match_reference(ref, arch):
+    """The port's specs are the reference's, except for int8 moments,
+    which sit at `quantized_moment_spec` of their parameter's spec (a
+    deliberate difference: see `sharding.quantized_moment_spec`)."""
     from jax.sharding import PartitionSpec
+    from repro_torch.tree import leaves_with_path
     for quantized in (False, True):
         tstate = _port_state(arch, quantized)
         rstate = _ref_state(ref, arch, quantized)
+        paths = [p for p, _ in leaves_with_path(tstate)]
+        shapes = [tuple(t.shape) for t in leaves(tstate)]
         for shape in MESH_SHAPES:
             for fsdp in (False, True):
                 got = leaves(TSH.param_specs(tstate, _stand_in(shape),
                                              fsdp=fsdp))
-                want = ref.jax.tree.leaves(
+                want = [tuple(w) for w in ref.jax.tree.leaves(
                     ref.SH.param_specs(rstate, _stand_in(shape), fsdp=fsdp),
-                    is_leaf=lambda x: isinstance(x, PartitionSpec))
+                    is_leaf=lambda x: isinstance(x, PartitionSpec))]
                 assert len(got) == len(want)
-                assert [tuple(g) for g in got] == [tuple(w) for w in want], \
+                moved = 0
+                for i, path in enumerate(paths):
+                    if str(path[-1]) == ".q":
+                        q = tuple(TSH.quantized_moment_spec(
+                            TSH.P(*want[i]), shapes[i], shape))
+                        moved += q != want[i]
+                        want[i] = want[i + 1] = q       # q, then scale
+                assert [tuple(g) for g in got] == want, \
                     (arch, quantized, shape, fsdp)
+                assert quantized or not moved
 
 
 @pytest.mark.parametrize("shape", MESH_SHAPES, ids=str)

@@ -260,12 +260,20 @@ def test_launcher_refuses_without_cuda():
 
 @pytest.mark.parametrize("flags", (("--mesh", "single"), ("--mesh", "multi"),
                                    ("--lower-only",)))
-def test_launcher_mesh_paths_name_the_roadmap(flags):
+def test_launcher_mesh_paths_name_the_roadmap(flags, capsys):
     """The production meshes need 256 or 512 ranks (one process here);
-    --lower-only waits for the dry-run slice (ROADMAP §1.3)."""
+    --lower-only builds the step under fake tensors on a fake group of
+    256 ranks, prints the per-rank memory and leaves no group behind."""
     if flags[0] == "--lower-only":
-        with pytest.raises(NotImplementedError, match="ROADMAP §1.3"):
-            TL.main(_argv("--device", "cpu", *flags))
+        argv = _argv("--device", "cpu", *flags)
+        argv[argv.index("--batch") + 1] = "32"      # rows over 16 ranks
+        TL.main(argv)
+        out = capsys.readouterr().out
+        assert "on 256 ranks" in out and "per-rank memory" in out
+        mem = float(out.split("per-rank memory ")[1].split(" GiB")[0])
+        assert 0 < mem < 1
+        import torch.distributed as dist
+        assert not dist.is_initialized()
         return
     want = "512" if flags[1] == "multi" else "256"
     with pytest.raises(RuntimeError, match=f"needs {want} ranks"):

@@ -10,9 +10,9 @@ wall limit, kills every rank still alive (they may be blocked in a
 collective) and fails with the rank's traceback.
 
 `run_reference(script, tmp_path)` runs the reference in a subprocess with
-8 fake host devices and an unarmed `repro.dist.chaos` stand-in (the
-checkout lacks that module); the script passes its results back as a
-pickle written to the path in ``sys.argv[1]``.
+8 fake host devices (or `devices`) and an unarmed `repro.dist.chaos`
+stand-in (the checkout lacks that module); the script passes its results
+back as a pickle written to the path in ``sys.argv[1]``.
 """
 from __future__ import annotations
 
@@ -84,7 +84,7 @@ def run_ranks(fn, n, tmp_path, *args, wall_s: float = 600.0):
 
 _PRELUDE = """
 import contextlib, os, pickle, sys, types
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=%(devices)d"
 os.environ["JAX_PLATFORMS"] = "cpu"
 stub = types.ModuleType("repro.dist.chaos")
 stub.current = lambda: None
@@ -92,7 +92,7 @@ stub.use_chaos = contextlib.contextmanager(lambda cfg: (yield None))
 sys.modules["repro.dist.chaos"] = stub
 import jax
 import repro
-assert jax.device_count() == 8, jax.devices()
+assert jax.device_count() == %(devices)d, jax.devices()
 OUT = {}
 """
 
@@ -102,11 +102,13 @@ with open(sys.argv[1], "wb") as f:
 """
 
 
-def run_reference(script: str, tmp_path, timeout: float = 600.0):
-    """Run `script` (which fills the dict ``OUT``) on 8 fake XLA devices;
-    returns ``OUT``."""
+def run_reference(script: str, tmp_path, timeout: float = 600.0,
+                  devices: int = 8):
+    """Run `script` (which fills the dict ``OUT``) on `devices` fake XLA
+    devices; returns ``OUT``."""
     out = os.path.join(str(tmp_path), f"ref_{time.monotonic_ns()}.pkl")
-    code = _PRELUDE + textwrap.dedent(script) + _POSTLUDE
+    code = _PRELUDE % {"devices": devices} + textwrap.dedent(script) \
+        + _POSTLUDE
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                JAX_PLATFORMS="cpu")
     done = subprocess.run([sys.executable, "-c", code, out], env=env,
