@@ -4,9 +4,10 @@ three codecs (cusz, cusz-i, fz) with every CUDA kernel of their paths
 held against its plain PyTorch version, their consumers, the serving
 path of three model families: dense (qwen3-4b), MLA + MoE
 (deepseek-v2-236b, 2 layers) and Mamba2/SSD (mamba2-1.3b), the
-training path (qwen3-4b) with its cusz restart files, the device mesh
-on a one-rank NCCL group, and the production dry run on a fake group of
-256 ranks.
+training path (qwen3-4b) with its cusz restart files, the runtime
+guards over the serve and cusz paths, the device mesh on a one-rank NCCL
+group, and the production dry run on a fake group of 256 ranks beside
+the analytic cost model.
 
 Run from the repository root, with no arguments:
 
@@ -72,6 +73,20 @@ Phases, each printing one JSON line:
             must preempt, with one evicted page encoded and restored
             again by the plain versions; then int8-block on the 8- and
             the 32-page pool for all 8, whose tokens must agree)
+  guards    over the serve phase's qwen3-4b weights (`repro_torch.debug`):
+            `generate` twice with the serve step's cache emptied (the
+            first builds "step" once, the second builds nothing: no
+            step, no kernel library), the continuous scheduler twice (4
+            requests, 32 pages; one "batch_step" build), 16 steady-state
+            decode steps of `decode_tokens` and of the scheduler under
+            ``no_implicit_transfers("disallow")`` and `host_sync_guard`
+            with the card's sync-debug mode (no transfer; no read but
+            the scheduler's waived token readback; the engine's ms per
+            step against the host-int position loop it replaced, as
+            information), then a cusz checkpoint of one qwen3-4b block
+            and NYX 512^3 encode / decode / pack / packed decode under
+            `host_sync_guard`: no unwaived read, the waived ones listed
+            by site; every guarded result equal to the unguarded one
   serve:deepseek:*  the same phases at deepseek-v2-236b's published
             widths (d_model 5120, 128 heads, MLA q_lora 1536 / kv_lora
             512 / rope 64, 160 routed experts top-6 of d_ff 1536 plus 2
@@ -146,8 +161,12 @@ Phases, each printing one JSON line:
             `train_4k` cut to 4 of 48 layers;
             each must report status ok, with its per-rank memory,
             collectives and build seconds
+  costmodel:*  per dry-run cell, `perf.costmodel.summarize` of its arch
+            at published depth under the H100's constants (each term
+            finite and positive), and for the cell built at that depth
+            the counted / analytic FLOP ratio
 
-Each of the consumer, serve, train and mesh phases is driven with the
+Each of the consumer, serve, guards, train and mesh phases is driven with the
 launch counts set to 0 just before it (each serve phase before itself)
 and read just after it; "timing" lines give each phase's seconds; `--seed`
 sets the data of the consumer, serve and train phases.
@@ -160,6 +179,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import resource
@@ -170,10 +190,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3, 67 TFLOP/s fp32 (non-tensor)
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
 
 # the codecs as benchmarks/quality.py configures them, and their
 # BENCH_quality.json rows (ratio = raw bytes / stored bytes)
@@ -261,9 +277,12 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
 
 def bound_ms(nbytes: float, ops: float):
     """Least time the card could take: the larger of bytes over the memory
-    rate and operations over the scalar rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    rate and operations over the scalar rate (the H100's rates, from
+    `perf.costmodel`)."""
+    from repro_torch.perf.costmodel import FP32_FLOPS, HBM_BW
+
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1663,9 +1682,266 @@ def phase_serve(torch, dev, seed: int) -> tuple:
                            "int8-block-big")
     counts = {k: schedule_counts(v[1]) for k, v in runs.items()}
     total = run.total
-    del params, run, runs
+    del run, runs
     torch.cuda.empty_cache()
-    return total, counts
+    return total, counts, params
+
+
+# the guards phase: steady-state decode steps under the transfer and
+# host-sync guards, and the continuous run built twice (4 requests on a
+# pool that never preempts)
+GUARDS = dict(steps=16, new=16, requests=4, pages=32)
+
+
+def _allowlist():
+    """The port's statically waived host-sync sites: the guards'
+    allowlist (``tools.lint`` reads the sources' AST; nothing is
+    imported from the package)."""
+    sys.path.insert(0, str(ROOT))
+    from tools.lint import waived_spans
+
+    return waived_spans(str(ROOT / "src" / "repro_torch"))
+
+
+def _hits_by_site(log) -> dict:
+    """{"module.py:line": count} of a SyncLog's waived hits."""
+    out: dict = {}
+    for h in log.allowed_hits:
+        path, line = h.split(" ")[0].rsplit(":", 1)
+        site = f"{Path(path).relative_to(ROOT / 'src')}:{line}"
+        out[site] = out.get(site, 0) + 1
+    return out
+
+
+def host_int_decode(torch, E, M, params, cfg, scfg, last, caches, plen,
+                    n: int):
+    """The decode loop as it was before the position moved to the card:
+    a Python int position per step, made a device tensor inside the
+    step (a pageable host-to-device copy per step)."""
+    step_fn = E.get_serve_step(cfg, scfg)
+    params = M.cast_params(params, scfg.compute_dtype)
+    caches = M.clone_caches(caches)
+    tok = E.pick_token(last, None, scfg)[:, None]
+    outs = []
+    for i in range(n):
+        outs.append(tok[:, 0])
+        logits, caches = step_fn(params, tok, caches, plen + i)
+        tok = E.pick_token(logits[:, 0, :], None, scfg)[:, None]
+    return torch.stack(outs, dim=1)
+
+
+def phase_guards(torch, dev, seed: int, params) -> dict:
+    """The runtime guards (`repro_torch.debug`) over the serve phase's
+    qwen3-4b weights and the cusz path, on the card:
+
+    * `generate` twice with the serve step's cache emptied: the first
+      builds the step once, the second builds nothing (no step, no
+      kernel library); the continuous scheduler run twice: the second
+      builds no batch step;
+    * `GUARDS["steps"]` steady-state decode steps, of `decode_tokens` and
+      of the scheduler, under ``no_implicit_transfers("disallow")`` and
+      `host_sync_guard` with the card's sync-debug mode: no transfer, no
+      unwaived read, the scheduler's waived token readback the only read;
+      the engine's per-step time against the host-int loop it replaced
+      (information, not a claim);
+    * a cusz `save_checkpoint` of one qwen3-4b block and a cusz encode /
+      decode / pack / packed decode of NYX 512^3 under `host_sync_guard`:
+      zero unwaived reads, the waived ones listed by site.
+
+    Every guarded result equals the unguarded one.  Returns the launch
+    counts of the phase."""
+    import os
+
+    import numpy as np
+
+    from repro_torch import codecs, configs
+    from repro_torch.data import scidata
+    from repro_torch.debug import (host_sync_guard, no_implicit_transfers,
+                                   no_recompiles)
+    from repro_torch.io import checkpoint as CK
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    from repro_torch.serve import scheduler as S
+
+    allowed = _allowlist()
+    cfg, g = configs.get("qwen3-4b"), GUARDS
+    scfg = E.ServeConfig(s_max=SERVE["s_max"], compressed_kv=True)
+    prompt = random_prompt(torch, np, cfg, dev, SERVE["batch"],
+                           SERVE["prompt"], seed)
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+
+    # builds: the serve step and the batch step once each, then nothing
+    E.get_serve_step.cache_clear()
+    E.STEP_TRACES.pop((cfg, scfg), None)
+    with no_recompiles(max_compiles=1, match=r"^step$") as first:
+        a = E.generate(params, cfg, prompt, g["new"], scfg)
+    with no_recompiles(max_compiles=0) as second:
+        b = E.generate(params, cfg, prompt, g["new"], scfg)
+    reqs = serve_requests(np, S.Request, cfg.vocab, seed)[:g["requests"]]
+    sc = S.SchedulerConfig(max_batch=SERVE["max_batch"],
+                           pool_pages=g["pages"], evict_codec="int8-block")
+    S.get_batch_step.cache_clear()
+    S.BATCH_STEP_TRACES.pop((cfg, scfg, SERVE["max_batch"]), None)
+    with no_recompiles(max_compiles=1, match=r"^batch_step$") as first_b:
+        fin_a, _ = S.run_continuous(params, cfg, scfg, sc, reqs)
+    with no_recompiles(max_compiles=0) as second_b:
+        fin_b, _ = S.run_continuous(params, cfg, scfg, sc, reqs)
+    builds = {"generate_1": first.compiles, "generate_2": second.compiles,
+              "continuous_1": first_b.compiles,
+              "continuous_2": second_b.compiles,
+              "step_traces": E.STEP_TRACES[(cfg, scfg)],
+              "batch_step_traces": S.BATCH_STEP_TRACES[
+                  (cfg, scfg, SERVE["max_batch"])]}
+    same_builds = torch.equal(a, b) and all(
+        fin_a[r]["tokens"] == fin_b[r]["tokens"] for r in fin_a)
+
+    # the engine's steady-state decode loop: guarded, and timed against
+    # the host-int loop it replaced (old, new, new, old)
+    last, caches, plen = E.prefill(params, cfg, prompt, scfg)
+    n = g["steps"]
+    want = E.decode_tokens(params, cfg, scfg, last, caches, plen, n)
+    with no_implicit_transfers("disallow") as moved, \
+            host_sync_guard(allowed, strict=False) as dec_log:
+        got = E.decode_tokens(params, cfg, scfg, last, caches, plen, n)
+    torch.cuda.synchronize()
+    ms = {"host_int": [], "device_position": []}
+    for label in ("host_int", "device_position", "device_position",
+                  "host_int"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "host_int":
+            old = host_int_decode(torch, E, M, params, cfg, scfg, last,
+                                  caches, plen, n)
+        else:
+            E.decode_tokens(params, cfg, scfg, last, caches, plen, n)
+        torch.cuda.synchronize()
+        ms[label].append((time.perf_counter() - t0) / n * 1e3)
+    decode_ok = torch.equal(got, want) and torch.equal(old, want) \
+        and not moved.transfers and not dec_log.violations \
+        and not dec_log.allowed_hits
+    del caches, last
+
+    # the scheduler's steady-state steps: the token readback only
+    def scheduler():
+        s = S.ContinuousScheduler(params, cfg, scfg, dataclasses.replace(
+            sc, max_batch=len(reqs)))
+        for r in reqs:
+            s.submit(dataclasses.replace(r, max_new=n + 2, arrival=0))
+        s._admit(0)
+        s._step()
+        return s
+
+    plain = scheduler()
+    for _ in range(n):
+        plain._step()
+    sched = scheduler()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_implicit_transfers("disallow") as s_moved, \
+            host_sync_guard(allowed, strict=False) as s_log:
+        for _ in range(n):
+            sched._step()
+    torch.cuda.synchronize()
+    t_sched = (time.perf_counter() - t0) / n * 1e3
+    s_sites = _hits_by_site(s_log)
+    sched_ok = not s_moved.transfers and not s_log.violations \
+        and [k.split(":")[0] for k in s_sites] == \
+        ["repro_torch/serve/scheduler.py"] \
+        and [s["generated"] for s in sched.slots] == \
+        [s["generated"] for s in plain.slots] \
+        and sched.lens_dev.tolist() == sched.lens.tolist()
+    del plain, sched
+    torch.cuda.empty_cache()
+
+    # the cusz path: a checkpoint of one qwen3-4b block, NYX 512^3
+    block = qwen3_tree(torch, dev, seed)["layers"]
+    policy = CK.CheckpointPolicy(codec="cusz", eb_valrel=1e-3)
+    with tempfile.TemporaryDirectory() as d:
+        CK.save_checkpoint(os.path.join(d, "plain"), 0, block,
+                           policy=policy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with host_sync_guard(allowed, strict=False) as ck_log:
+            CK.save_checkpoint(os.path.join(d, "guarded"), 0, block,
+                               policy=policy)
+        t_ck = time.perf_counter() - t0
+        files = [sorted(os.listdir(os.path.join(d, k, "step_00000000")))
+                 for k in ("plain", "guarded")]
+        ck_same = files[0] == files[1] and all(
+            _same_npz(np, os.path.join(d, "plain", "step_00000000", f),
+                      os.path.join(d, "guarded", "step_00000000", f))
+            for f in files[0])
+    codec = codecs.get("cusz", **QUALITY_KW["cusz"])
+    x = scidata.nyx_like((512, 512, 512), seed=3, device=dev)
+    c0 = codec.encode(x)
+    y0 = codecs.decode(c0)
+    del c0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with host_sync_guard(allowed, strict=False) as nyx_log:
+        c = codec.encode(x)
+        y = codecs.decode(c)
+        p = codec.pack(c)
+        y2 = codecs.decode(p, device=dev)
+    torch.cuda.synchronize()
+    t_nyx = time.perf_counter() - t0
+    nyx_same = torch.equal(y, y0) and torch.equal(y2, y0)
+    del x, c, p, y, y0, y2, block
+    torch.cuda.empty_cache()
+
+    counts = dispatch.launch_counts()
+    missing = [k for k in PATH_KERNELS["cusz"] if counts[k] == 0]
+    violations = (dec_log.violations + s_log.violations
+                  + ck_log.violations + nyx_log.violations)
+    rec = {"phase": "guards", "builds": builds,
+           "decode": {"steps": n, "transfers": moved.transfers,
+                      "violations": dec_log.violations,
+                      "waived_hits": _hits_by_site(dec_log),
+                      "ms_per_step": ms, "tokens_equal": decode_ok},
+           "scheduler": {"steps": n, "slots": len(reqs),
+                         "transfers": s_moved.transfers,
+                         "violations": s_log.violations,
+                         "waived_hits": s_sites, "ms_per_step": t_sched},
+           "checkpoint": {"leaves": "one qwen3-4b block, cusz eb_valrel "
+                          "1e-3", "seconds": t_ck, "same_bytes": ck_same,
+                          "violations": ck_log.violations,
+                          "waived_hits": _hits_by_site(ck_log)},
+           "nyx": {"shape": [512, 512, 512], "seconds": t_nyx,
+                   "same_output": nyx_same,
+                   "violations": nyx_log.violations,
+                   "waived_hits": _hits_by_site(nyx_log)},
+           "kernels_missing": missing,
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(rec)
+    for part in ("checkpoint", "nyx"):
+        print(f"guards:{part} waived hits by site: "
+              f"{rec[part]['waived_hits']}", flush=True)
+    require(first.compiles == ["step"] and not second.compiles
+            and first_b.compiles == ["batch_step"] and not second_b.compiles
+            and builds["step_traces"] == 1
+            and builds["batch_step_traces"] == 1 and same_builds,
+            f"guards: rebuilds or differing tokens: {builds}")
+    require(not violations, f"guards: unwaived host syncs: {violations}")
+    require(decode_ok and sched_ok,
+            f"guards: the steady-state decode loop moved host data or read "
+            f"the card: {rec['decode']} {rec['scheduler']}")
+    require(ck_same and nyx_same and ck_log.allowed_hits
+            and nyx_log.allowed_hits,
+            "guards: a guarded cusz result differs from the unguarded one")
+    require(not missing, f"guards: cusz kernels not launched: {missing}")
+    return counts
+
+
+def _same_npz(np, a: str, b: str) -> bool:
+    """Two files of a checkpoint step hold the same arrays (an npz) or
+    the same bytes."""
+    if not a.endswith(".npz"):
+        return Path(a).read_bytes() == Path(b).read_bytes()
+    with np.load(a) as za, np.load(b) as zb:
+        return za.files == zb.files and all(
+            np.array_equal(za[k], zb[k]) for k in za.files)
 
 
 def phase_serve_deepseek(torch, dev, seed: int, qwen_counts) -> dict:
@@ -2718,8 +2994,14 @@ def phase_dryrun() -> None:
     with the card hidden, all started together; a cell fails unless its
     process ends within `DRYRUN_CAP_S` of that start and reports
     ``status: "ok"``.  Per cell: the per-rank memory, collective counts,
-    build seconds, torch version and the process's own wall seconds."""
+    build seconds, torch version and the process's own wall seconds; and
+    the analytic cost model (`perf.costmodel.summarize`) of the cell's
+    arch at its published depth under the H100's constants, with, for a
+    cell built at that depth, the counted / analytic FLOP ratio.  Each
+    cost-model number must be finite and positive."""
     import os
+
+    from repro_torch.perf import costmodel
 
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     logs = ROOT / "chiprun_out" / "dryrun"
@@ -2746,8 +3028,8 @@ def phase_dryrun() -> None:
             if p.poll() is None:
                 p.kill()
             p.wait()
-    for (arch, shape, _), p, end, (out, err) in zip(DRYRUN_CELLS, procs,
-                                                    ends, files):
+    for (arch, shape, layers), p, end, (out, err) in zip(DRYRUN_CELLS,
+                                                         procs, ends, files):
         out.seek(0)
         err.seek(0)
         lines = [ln for ln in out.read().splitlines() if ln.startswith("{")]
@@ -2755,6 +3037,22 @@ def phase_dryrun() -> None:
             "status": "error", "error": err.read()[-2000:]}
         out.close()
         err.close()
+        model = costmodel.summarize(arch, shape, False)
+        terms = {k: model[k] for k in ("flops_per_chip",
+                                       "hbm_bytes_per_chip",
+                                       "coll_bytes_per_chip", "compute_s",
+                                       "memory_s", "collective_s",
+                                       "bound_s")}
+        if layers is None and rec.get("flops_per_device"):
+            terms["counted_over_analytic_flops"] = \
+                rec["flops_per_device"] / model["flops_per_chip"]
+        emit({"phase": f"costmodel:{arch}:{shape}", "depth": "published",
+              "n_ranks": 256, "constants": costmodel.H100._asdict(),
+              **terms, "dominant": model["dominant"],
+              "breakdown": model["breakdown"]})
+        require(all(math.isfinite(v) and v > 0 for v in terms.values()),
+                f"costmodel:{arch}:{shape}: a term is not finite and "
+                f"positive: {terms}")
         emit({"phase": f"dryrun:{arch}:{shape}",
               "status": rec.get("status"), "layers": rec.get("layers"),
               "cell": rec.get("cell"), "torch": rec.get("torch"),
@@ -2822,8 +3120,12 @@ def main() -> int:
     per_path["kv"] = timed("kv", phase_kv, torch, dev, args.seed)
     per_path["checkpoint"] = timed("checkpoint", phase_checkpoint, torch,
                                    dev, args.seed)
-    per_path["serve"], qwen_counts = timed("serve", phase_serve, torch, dev,
-                                           args.seed)
+    per_path["serve"], qwen_counts, qwen_params = timed(
+        "serve", phase_serve, torch, dev, args.seed)
+    per_path["guards"] = timed("guards", phase_guards, torch, dev,
+                               args.seed, qwen_params)
+    del qwen_params
+    torch.cuda.empty_cache()
     per_path["serve:deepseek"] = timed("serve:deepseek",
                                        phase_serve_deepseek, torch, dev,
                                        args.seed, qwen_counts)
@@ -2843,7 +3145,7 @@ def main() -> int:
             per_path[name] = timed(name, fn, torch, dev, args.seed)
     timed("dryrun", phase_dryrun)
     # launches summed over the three codecs' main paths, the consumer,
-    # serve, train and mesh phases
+    # serve, guards, train and mesh phases
     summary = [{**kernels[k],
                 "launches": sum(c[k] for c in per_path.values())}
                for k in KERNELS]

@@ -31,6 +31,7 @@ def _storage_array(v) -> np.ndarray:
     integers of the same width."""
     if isinstance(v, torch.Tensor) and v.dtype in _NO_NUMPY:
         sint, uint = _INT_OF[v.element_size()]
+        # repro-lint: allow[host-sync] pack() IS the device->storage boundary
         return v.detach().cpu().view(sint).numpy().view(uint)
     return to_numpy(v)
 

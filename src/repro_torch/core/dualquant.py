@@ -112,6 +112,9 @@ def codes_to_delta(codes: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.where(codes == 0, 0, codes - radius).to(torch.int32)
 
 
+# repro-lint: allow[host-sync] torch.nonzero sizes the outlier
+# compaction: the count is read once per encode and goes back as a 0-d
+# tensor
 def extract_outliers(delta_flat: torch.Tensor, in_cap_flat: torch.Tensor,
                      capacity: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -140,5 +143,7 @@ def scatter_outliers(delta_flat: torch.Tensor, idx: torch.Tensor,
     Indices outside [0, n) (the fill) are dropped."""
     n = delta_flat.shape[0]
     keep = (idx >= 0) & (idx < n)
+    # repro-lint: allow[host-sync] the boolean mask compacts the filled
+    # capacity: one count read per decode
     delta_flat[idx[keep].long()] = val[keep].to(delta_flat.dtype)
     return delta_flat

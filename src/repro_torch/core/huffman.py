@@ -93,6 +93,8 @@ def codeword_lengths_host(freq) -> np.ndarray:
     return lengths.astype(np.int32)
 
 
+# repro-lint: allow[host-sync] the Huffman tree is built on the host, as
+# in the paper: one copy of the nbins-count histogram, then host lists
 def codeword_lengths(freq: torch.Tensor) -> torch.Tensor:
     """Two-queue Huffman on a host copy of `freq`.
 
@@ -157,6 +159,8 @@ class Codebook(NamedTuple):
     max_len: torch.Tensor     # 0-d int32
 
     def to(self, device) -> "Codebook":
+        # repro-lint: allow[host-sync] the host-built codebook goes to the
+        # card once per encode (six small pageable copies)
         return Codebook(*(t.to(device) for t in self))
 
 
@@ -179,7 +183,7 @@ def canonical_codebook(lengths: torch.Tensor) -> Codebook:
     lengths = lengths.to(torch.int32)
     k = lengths.numel()
     cnt = _length_counts(lengths)
-    cnt_l = cnt.tolist()
+    cnt_l = cnt.tolist()  # repro-lint: allow[host-sync] the first codes are a 32-step host recurrence over the length counts
     fc = [0] * (MAXLEN + 1)
     for l in range(1, MAXLEN + 1):          # u32 recurrence, wraps like it
         fc[l] = ((fc[l - 1] + cnt_l[l - 1]) << 1) & _M32
@@ -323,6 +327,8 @@ class DecodeTable(NamedTuple):
     lut: torch.Tensor         # [2^LUT_BITS] int32 packed (sym, len) or 0
 
     def to(self, device) -> "DecodeTable":
+        # repro-lint: allow[host-sync] the host-built decode table goes to
+        # the card once per codebook (cached)
         return DecodeTable(self.cb.to(device), self.thresh.to(device),
                            self.lmask.to(device), self.lut.to(device))
 
@@ -381,6 +387,8 @@ def build_lut(cb: Codebook, thresh: torch.Tensor, lmask: torch.Tensor
 def build_decode_table(lengths: torch.Tensor) -> DecodeTable:
     """Codebook, decode bounds and LUT from stored bitlengths, built on
     the host and moved to the device of `lengths`."""
+    # repro-lint: allow[host-sync] the decode table is built on the host
+    # from one copy of the stored bitlengths
     cb = canonical_codebook(lengths.detach().to("cpu"))
     thresh, lmask = _length_bounds(cb)
     lut = build_lut(cb, thresh, lmask)

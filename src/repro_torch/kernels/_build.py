@@ -121,10 +121,14 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built or loaded on first call, which
+    ``debug.no_recompiles`` counts as "kernels")."""
     global _lib
     with _lock:
         if _lib is None:
+            from repro_torch.debug import guards
+
+            guards.note_build("kernels")
             handle = ctypes.CDLL(str(build()))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)

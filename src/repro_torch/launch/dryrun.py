@@ -52,13 +52,10 @@ from repro_torch.configs.shapes import SHAPES, applicable
 from repro_torch.dist import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+# one NVIDIA H100 SXM's rates, from their one source
+from repro_torch.perf.costmodel import HBM_BW, NVLINK_BW, PEAK_FLOPS
 from repro_torch.train.train_step import TrainConfig, make_train_step
 from repro_torch.tree import leaves, leaves_with_path, tree_map
-
-#: one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates, 700 W)
-PEAK_FLOPS = 989e12          # bf16 FLOP/s per card
-HBM_BW = 3.35e12             # B/s per card
-NVLINK_BW = 450e9            # B/s per card and direction (NVLink 4)
 
 #: dry-run knobs per arch (microbatching / quantized moments / accum dtype)
 ARCH_TRAIN = {

@@ -25,6 +25,9 @@ Runs on the card unless ``--device cpu`` is given.
 
 The weights are random (``--seed``), f32, computed in bf16.  Archs with
 Mamba layers draw the continuous mode's prompt lengths as whole chunks.
+The shared runtime flags (``--nan-debug``, ``--no-async-collectives``,
+``--host-devices``) are `launch.env`'s, applied before the first CUDA
+touch.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.launch import env as launch_env
 from repro_torch.models import model as M
 from repro_torch.models.ssm import SEG_CHUNKS
 from repro_torch.serve.engine import (LAST_HANDOFF_STATS, LAST_RESHARD_STATS,
@@ -45,7 +49,7 @@ from repro_torch.serve.engine import (LAST_HANDOFF_STATS, LAST_RESHARD_STATS,
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)  # repro-lint: allow[host-sync] wall-clock fence
 
 
 def main(argv=None):
@@ -83,7 +87,10 @@ def main(argv=None):
                     help="where the model runs (cpu only when asked)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights, prompts and sampling")
+    launch_env.add_arguments(ap)
     args = ap.parse_args(argv)
+
+    launch_env.setup_runtime(launch_env.from_args(args))
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run on the "

@@ -28,7 +28,9 @@ group has 256 or 512 ranks.  ``--lower-only`` runs nothing on a device:
 it builds the step once under fake tensors on a fake group of 256 ranks
 (512 with ``--mesh multi``) and prints the per-rank memory
 (`launch.dryrun`).  The weights are random (seed 0), f32, computed in
-bf16; tokens come from the synthetic bigram stream.
+bf16; tokens come from the synthetic bigram stream.  The shared runtime
+flags (``--nan-debug``, ``--no-async-collectives``, ``--host-devices``)
+are `launch.env`'s, applied before the first CUDA touch.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from repro_torch.data import pipeline
 from repro_torch.dist import chaos, fault
 from repro_torch.dist import sharding as SH
 from repro_torch.dist.context import use_mesh, use_param_specs
+from repro_torch.launch import env as launch_env
 from repro_torch.launch import mesh as LM
 from repro_torch.io import checkpoint as ckpt_io
 from repro_torch.models import model as M
@@ -81,8 +84,10 @@ def main(argv=None):
     ap.add_argument("--mitigate", action="store_true",
                     help="arm the straggler MitigationPolicy (rebalance/"
                          "exclude flagged hosts, skip NaN steps)")
+    launch_env.add_arguments(ap)
     args = ap.parse_args(argv)
 
+    launch_env.setup_runtime(launch_env.from_args(args))
     if args.lower_only:
         return _lower_only(args)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -168,7 +173,7 @@ def _run(args, mesh):
                                               args.seq, step, podded=podded)
                 t0 = time.perf_counter()
                 loss, params, opt = step_fn(params, opt, batch)
-                loss = float(loss)               # the step-time fence
+                loss = float(loss)  # repro-lint: allow[host-sync] step-time fence
                 dt = time.perf_counter() - t0
                 if monkey is not None:
                     shares = policy.shares if policy is not None else None

@@ -421,15 +421,17 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                 caches: DecodeCaches, cache_len,
                 compute_dtype=torch.bfloat16, compressed_kv: bool = False):
     """token: [B,1] integer; caches as from init_caches/prefill.
-    `cache_len`: the new token's position, an int or a [B] tensor (one
-    per row).  Writes the new K/V, latents and Mamba states into
-    `caches` IN PLACE.  Returns (logits [B,1,V] f32, caches).  A DTensor
+    `cache_len`: the new token's position, an int or a 0-d or [B]
+    integer tensor (one per row); a tensor on the device goes in as it
+    is, with no host round trip.  Writes the new K/V, latents and Mamba
+    states into `caches` IN PLACE.  Returns (logits [B,1,V] f32, caches).  A DTensor
     `token` takes the mesh decode (`mesh_decode_step`)."""
     if _is_dtensor(token):
         return mesh_decode_step(params, cfg, token, caches, cache_len,
                                 compute_dtype, compressed_kv)
     x = params["embed"][token].to(compute_dtype)
-    # the positions go to the device once per step, not once per layer
+    # an int position goes to the device once per step, not once per
+    # layer; a device tensor is used as it is
     lens = torch.as_tensor(cache_len, device=x.device)
     for period in range(cfg.n_periods):
         for kind, layer, entry in zip(cfg.pattern, params["layers"],

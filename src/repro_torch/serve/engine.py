@@ -46,6 +46,7 @@ import torch
 from repro_torch import codecs
 from repro_torch.codecs.base import input_device
 from repro_torch.core import kvcache as KVC
+from repro_torch.debug import guards
 from repro_torch.dist import context as dist_ctx
 from repro_torch.models import model as M
 from repro_torch.models import ssm as ssm_mod
@@ -225,10 +226,17 @@ def make_serve_step(cfg: ModelConfig, scfg: ServeConfig):
     return step
 
 
+#: builds per (cfg, scfg) key: `generate` reuses the step across calls
+#: (``debug.no_recompiles`` counts the same builds as "step")
+STEP_TRACES: Dict[Any, int] = {}
+
+
 @functools.lru_cache(maxsize=None)
 def get_serve_step(cfg: ModelConfig, scfg: ServeConfig):
-    """The serve step for `(cfg, scfg)`, one per key (configs are frozen
-    dataclasses, so the key is a stable hash)."""
+    """The serve step for `(cfg, scfg)`, built once per key (configs are
+    frozen dataclasses, so the key is a stable hash)."""
+    STEP_TRACES[(cfg, scfg)] = STEP_TRACES.get((cfg, scfg), 0) + 1
+    guards.note_build("step")
     return make_serve_step(cfg, scfg)
 
 
@@ -250,9 +258,10 @@ def decode_tokens(params, cfg: ModelConfig, scfg: ServeConfig,
                   generator: Optional[torch.Generator] = None):
     """Synchronized-batch decode loop from prefilled (or resharded)
     caches.  Works on a copy of `caches` (the step writes in place; the
-    caller's stay as they were).  Returns [B, n_new] int32 (on a mesh a
-    DTensor placed by rows: each rank decodes its own rows, see the module
-    docstring)."""
+    caller's stay as they were).  The position lives on the device and
+    advances in place, so no host scalar crosses to the card per step.
+    Returns [B, n_new] int32 (on a mesh a DTensor placed by rows: each
+    rank decodes its own rows, see the module docstring)."""
     mesh = dist_ctx.current_mesh()
     if mesh is not None:
         return _mesh_decode_tokens(mesh, params, cfg, scfg, last_logits,
@@ -261,12 +270,21 @@ def decode_tokens(params, cfg: ModelConfig, scfg: ServeConfig,
     step_fn = get_serve_step(cfg, scfg)
     caches = M.clone_caches(caches)
     tok = pick_token(last_logits, generator, scfg)[:, None]
+    pos = device_position(plen, last_logits.device)
     outs = []
-    for i in range(n_new):
+    for _ in range(n_new):
         outs.append(tok[:, 0])
-        logits, caches = step_fn(params, tok, caches, plen + i)
+        logits, caches = step_fn(params, tok, caches, pos)
+        pos += 1
         tok = pick_token(logits[:, 0, :], generator, scfg)[:, None]
     return torch.stack(outs, dim=1)
+
+
+def device_position(plen: int, device) -> torch.Tensor:
+    """The decode position as a 0-d int64 tensor on `device`, made by a
+    fill (the value rides as a kernel argument, no host copy); the loop
+    advances it in place."""
+    return torch.full((), int(plen), dtype=torch.int64, device=device)
 
 
 def _mesh_decode_tokens(mesh, params, cfg, scfg, last_logits, caches,
@@ -287,14 +305,16 @@ def _mesh_decode_tokens(mesh, params, cfg, scfg, last_logits, caches,
     caches = M.clone_caches(place_caches(caches, mesh,
                                          _long_ctx(mesh, B)))
     tok = pick_token(_rows_local(last_logits, 0), generator, scfg)
+    pos = device_position(plen, tok.device)
     outs = []
-    for i in range(n_new):
+    for _ in range(n_new):
         outs.append(tok)
         tok_d = DTensor.from_local(tok[:, None], mesh, rows.placements(2),
                                    run_check=False)
-        logits, caches = M.decode_step(params, cfg, tok_d, caches, plen + i,
+        logits, caches = M.decode_step(params, cfg, tok_d, caches, pos,
                                        compute_dtype=scfg.compute_dtype,
                                        compressed_kv=scfg.compressed_kv)
+        pos += 1
         tok = pick_token(_rows_local(logits, 0)[:, 0, :], generator, scfg)
     return DTensor.from_local(torch.stack(outs, dim=1), mesh,
                               rows.placements(2), run_check=False)

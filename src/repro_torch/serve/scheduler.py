@@ -39,12 +39,14 @@ the pool, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import kvcache as KVC
+from repro_torch.debug import guards
 from repro_torch.models import model as M
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -76,6 +78,12 @@ class Request:
 # the batched decode step: every slot at its own position
 # ---------------------------------------------------------------------------
 
+#: builds per (cfg, scfg, max_batch): admission and retirement churn
+#: never build the batched step again (``debug.no_recompiles`` counts the
+#: same builds as "batch_step")
+BATCH_STEP_TRACES: Dict[Any, int] = {}
+
+
 def make_batch_step(cfg: ModelConfig, scfg: E.ServeConfig):
     """One-token decode for a batch of ragged slots: one batched
     `decode_step` with a PER-SLOT cache_len vector, so each row attends
@@ -93,6 +101,18 @@ def make_batch_step(cfg: ModelConfig, scfg: E.ServeConfig):
         return E.pick_token(logits[:, -1, :], gen, scfg), caches
 
     return batch_step
+
+
+@functools.lru_cache(maxsize=None)
+def get_batch_step(cfg: ModelConfig, scfg: E.ServeConfig, max_batch: int):
+    """The batched step for `(cfg, scfg, max_batch)`, built once per key,
+    so every scheduler at one config (pool-size ablations included)
+    shares it.  Pool knobs are not part of the key: the step never sees
+    them."""
+    key = (cfg, scfg, max_batch)
+    BATCH_STEP_TRACES[key] = BATCH_STEP_TRACES.get(key, 0) + 1
+    guards.note_build("batch_step")
+    return make_batch_step(cfg, scfg)
 
 
 # ---------------------------------------------------------------------------
@@ -185,14 +205,18 @@ class ContinuousScheduler:
                                 seq_axis=E.HANDOFF_SEQ_AXIS,
                                 device=self.device)
         self.seq_axis = E.HANDOFF_SEQ_AXIS
-        self.step_fn = make_batch_step(cfg, scfg)
         B = schedcfg.max_batch
+        self.step_fn = get_batch_step(cfg, scfg, B)
         self.caches = M.init_caches(cfg, B, scfg.s_max,
                                     dtype=scfg.compute_dtype,
                                     compressed_kv=True, device=self.device)
         self.tokens = torch.zeros((B, 1), dtype=torch.int32,
                                   device=self.device)
         self.lens = np.zeros((B,), np.int64)      # host mirror of cache_len
+        # cache_len on the device: written at admission and retirement,
+        # advanced in place per step where a slot is live (len > 0)
+        self.lens_dev = torch.zeros((B,), dtype=torch.int64,
+                                    device=self.device)
         self.slots: List[Optional[Dict[str, Any]]] = [None] * B
         self.queue: List[Request] = []
         self.finished: Dict[int, Dict[str, Any]] = {}
@@ -220,7 +244,7 @@ class ContinuousScheduler:
                                  device=self.device)[None, :]
         last, caches, plen = E.prefill(self.params, self.cfg, prompt,
                                        self.scfg)
-        t0 = int(E.pick_token(last, self.generator, self.scfg)[0])
+        t0 = int(E.pick_token(last, self.generator, self.scfg)[0])  # repro-lint: allow[host-sync] admission needs the first sampled token on host to seed the slot
 
         leaves = _attn_leaves(self.cfg, caches.entries)
         n_pages = KVC.kv_page_count(plen)
@@ -267,8 +291,8 @@ class ContinuousScheduler:
         self._suspended[s["rid"]] = {
             "generated": s["generated"], "plen": s["plen"],
             "next_token": s["next_token"], "t_submit": s["t_submit"]}
+        self._set_len(slot, 0)
         self.slots[slot] = None
-        self.lens[slot] = 0
         self.preemptions += 1
         return freed
 
@@ -341,7 +365,7 @@ class ContinuousScheduler:
             for f, o in zip(full, one):
                 f[:, slot].copy_(o[:, 0])
         self.tokens[slot, 0] = int(t_next)
-        self.lens[slot] = plen + len(generated)
+        self._set_len(slot, plen + len(generated))
         self.slots[slot] = {
             "rid": req.rid, "req": req, "plen": plen,
             "generated": list(generated), "next_token": int(t_next),
@@ -349,6 +373,12 @@ class ContinuousScheduler:
             "t_submit": t_submit}
         self.pool.touch(req.rid)
         return True
+
+    def _set_len(self, slot: int, n: int) -> None:
+        """Slot `slot`'s cache_len, on the host and on the device (a
+        scalar write: a fill, not a copy)."""
+        self.lens[slot] = n
+        self.lens_dev[slot] = n
 
     def _next_admit_order(self) -> int:
         self._admit_counter += 1
@@ -398,11 +428,11 @@ class ContinuousScheduler:
     def _step(self) -> None:
         self._grow_pages()
         nt, self.caches = self.step_fn(
-            self.params, self.tokens, self.caches,
-            torch.as_tensor(self.lens, device=self.device), self.generator)
+            self.params, self.tokens, self.caches, self.lens_dev,
+            self.generator)
+        self.lens_dev += self.lens_dev > 0
         self.n_steps += 1
-        # scheduler control flow (retire/admit) branches on the tokens
-        nt_host = nt.cpu().numpy()
+        nt_host = nt.cpu().numpy()  # repro-lint: allow[host-sync] scheduler control flow (retire/admit) branches on the sampled tokens
         for slot, s in enumerate(self.slots):
             if s is None:
                 continue
@@ -429,7 +459,7 @@ class ContinuousScheduler:
             self.pool.release(s["rid"])
             self.states.pop(s["rid"], None)
             self.slots[slot] = None
-            self.lens[slot] = 0
+            self._set_len(slot, 0)
 
     def live(self) -> int:
         return sum(1 for s in self.slots if s is not None)
