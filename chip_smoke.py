@@ -16,12 +16,18 @@ Run from the repository root, with no arguments:
 Phases, each printing one JSON line:
 
   env       card name and power limit (nvidia-smi), torch and CUDA versions
-  build     nvcc builds the ten kernels for sm_90a; seconds and the
+  build     nvcc builds the thirteen kernels for sm_90a; seconds and the
             ptxas register / shared-memory report
   kernel:*  each kernel at the main path's shapes on a NYX-like 512^3
             field, compared exactly with its plain version on the card;
             kernel, plain and (where one PyTorch call computes the same
-            function) library times from CUDA events.  Also: the share
+            function) library times from CUDA events.  The Huffman
+            codebook kernels (tree, codebook, decode table) run on NYX's
+            histogram, each record also with the latency of its serial
+            chain at one shared-memory round trip per step, and
+            `huffman:stage` times the stage as the pipeline calls it
+            (host clock): tree + codebook, and the decode table's build
+            (codebook + decode table), kernels against plain.  Also: the share
             of inflate steps that take the long-code path, inflate on a
             max_len-32 stream, lorenzo.dualquant and lorenzo.reverse on
             the same bytes as (256) and (16,16) blocks, dual-quant's
@@ -39,7 +45,10 @@ Phases, each printing one JSON line:
             reference's BENCH_quality.json rows, error bound held
   main:*    per codec, encode -> device-form decode -> pack -> packed
             decode at the paper's Table 2 sizes (HACC 1-D 280,953,867,
-            CESM 1800x3600, NYX 512^3) at eb=1e-4 valrel; the launch
+            CESM 1800x3600, NYX 512^3) at eb=1e-4 valrel; cusz and
+            cusz-i also encode and decode each field by the plain
+            versions, the Huffman stage's included: byte-identical
+            containers and equal outputs; the launch
             counts are set to 0 before each codec's path and read after
             it ("main:<field>" and "main:launches" are cusz's,
             "main:cusz-i:<field>", "main:fz:<field>" the others')
@@ -227,7 +236,17 @@ KERNELS = {
                           "src/repro/kernels/bitshuffle/kernel.py:46"),
     "bitshuffle.decode": ("src/repro_torch/csrc/bitshuffle.cu",
                           "src/repro/kernels/bitshuffle/kernel.py:63"),
+    # no Pallas kernel: the reference's jitted device functions
+    "huffman.tree": ("src/repro_torch/csrc/huffman.cu",
+                     "src/repro/core/huffman.py:113"),
+    "huffman.codebook": ("src/repro_torch/csrc/huffman.cu",
+                         "src/repro/core/huffman.py:184"),
+    "huffman.decode_table": ("src/repro_torch/csrc/huffman.cu",
+                             "src/repro/core/huffman.py:458"),
 }
+# one shared-memory round trip of a dependent chain: ~30 SM cycles on
+# Hopper, at the card's maximum SM clock (nvidia-smi clocks.max.sm)
+SMEM_ROUND_TRIP_CYCLES = 30
 
 # qwen3-4b (src/repro/configs/qwen3_4b.py): the widths of the consumer
 # phases
@@ -238,11 +257,12 @@ QWEN3_4B = dict(n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8,
 KV_SEQ, KV_SLABS = 32768, 256
 
 # codec -> the kernels its path must launch
+HUFFMAN_STAGE = ("huffman.tree", "huffman.codebook", "huffman.decode_table")
 PATH_KERNELS = {
-    "cusz": ("lorenzo.dualquant", "histogram", "encode", "deflate",
-             "inflate", "lorenzo.reverse"),
-    "cusz-i": ("interp.predict", "histogram", "encode", "deflate",
-               "inflate", "interp.reconstruct"),
+    "cusz": ("lorenzo.dualquant", "histogram", *HUFFMAN_STAGE, "encode",
+             "deflate", "inflate", "lorenzo.reverse"),
+    "cusz-i": ("interp.predict", "histogram", *HUFFMAN_STAGE, "encode",
+               "deflate", "inflate", "interp.reconstruct"),
     "fz": ("lorenzo.dualquant", "bitshuffle.encode", "bitshuffle.decode",
            "lorenzo.reverse"),
 }
@@ -348,14 +368,14 @@ def inflate_long_codes(torch, dev, chunk: int, sub: int) -> None:
     fib = [1, 1]
     while len(fib) < 33:
         fib.append(fib[-1] + fib[-2])
-    freq = torch.zeros(1024, dtype=torch.int64)
-    freq[100:133] = torch.tensor(fib)
+    freq = torch.zeros(1024, dtype=torch.int32, device=dev)
+    freq[100:133] = torch.tensor(fib, dtype=torch.int32, device=dev)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     codes = torch.repeat_interleave(torch.arange(1024, device=dev),
-                                    freq.to(dev)).to(torch.int32)
+                                    freq).to(torch.int32)
     codes = codes[torch.randperm(codes.numel(), device=dev, generator=g)]
-    cb = hf.canonical_codebook(hf.codeword_lengths(freq)).to(dev)
+    cb = hf.canonical_codebook(hf.codeword_lengths(freq))
     cw, bw = encode_ops.encode_cuda(codes, cb)
     words, _, gbits, _ = deflate_ops.deflate_cuda(cw, bw, chunk, sub)
     nc, n = words.shape[0], codes.numel()
@@ -374,11 +394,91 @@ def inflate_long_codes(torch, dev, chunk: int, sub: int) -> None:
             f"{diff}")
 
 
+def huffman_stage(torch, dev, hist, record):
+    """The three codebook kernels on NYX's histogram, each against its
+    plain version (CUDA-event times; the plain tree's merge runs on a host
+    copy), then the stage as the pipeline runs it, on the host clock:
+    tree + codebook (the encode side) and codebook + decode table (the
+    decode side's build, once per new codebook).  Returns the codebook and
+    the decode table."""
+    from repro_torch.core import huffman as hf
+    from repro_torch.kernels.huffman import ops as huff_ops
+
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    round_trip_ms = SMEM_ROUND_TRIP_CYCLES / (clock_mhz * 1e3)
+    k = hist.numel()
+    n_active = int((hist > 0).sum())
+    log_p = max(k - 1, 0).bit_length()
+    p = 1 << log_p
+    sort_ops = p // 2 * log_p * (log_p + 1) // 2      # compare-exchanges
+
+    def diff_of(a, b):
+        return max(max_diff(torch, x, y) for x, y in zip(a, b))
+
+    def stage_record(name, diff, fn, plain, nbytes, ops, chain_steps):
+        record(name, diff, cuda_ms(torch, fn, 20), cuda_ms(torch, plain, 3),
+               nbytes, ops, nbins=k, n_active=n_active,
+               chain_steps=chain_steps,
+               chain_bound_ms=chain_steps * round_trip_ms,
+               smem_round_trip_cycles=SMEM_ROUND_TRIP_CYCLES,
+               sm_clock_mhz=clock_mhz)
+
+    lengths = huff_ops.tree_cuda(hist)
+    stage_record("huffman.tree",
+                 diff_of([lengths], [huff_ops.ref.codeword_lengths_ref(hist)]),
+                 lambda: huff_ops.tree_cuda(hist),
+                 lambda: huff_ops.ref.codeword_lengths_ref(hist),
+                 8 * k, sort_ops + 2 * max(n_active - 1, 0),
+                 2 * max(n_active - 1, 0))
+    cb = huff_ops.codebook_cuda(lengths)
+    stage_record("huffman.codebook",
+                 diff_of(cb, huff_ops.ref.canonical_codebook_ref(lengths)),
+                 lambda: huff_ops.codebook_cuda(lengths),
+                 lambda: huff_ops.ref.canonical_codebook_ref(lengths),
+                 12 * k + 8 * (hf.MAXLEN + 1) + 4, sort_ops + 2 * k,
+                 hf.MAXLEN)
+    parts = huff_ops.decode_table_cuda(cb)
+    lut_n = 1 << hf.LUT_BITS
+    stage_record("huffman.decode_table",
+                 diff_of(parts, huff_ops.ref.decode_table_ref(cb)),
+                 lambda: huff_ops.decode_table_cuda(cb),
+                 lambda: huff_ops.ref.decode_table_ref(cb),
+                 8 * k + 16 * (hf.MAXLEN + 1) + 4 * lut_n,
+                 2 * lut_n * 2 * (hf.MAXLEN + 1), 2 * (hf.MAXLEN + 1))
+
+    def host_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def encode_side(impl):
+        return hf.canonical_codebook(hf.codeword_lengths(hist, impl), impl)
+
+    def decode_side(impl):
+        return hf.build_decode_table(lengths, impl)
+
+    emit({"phase": "huffman:stage", "nbins": k, "n_active": n_active,
+          "max_len": int(cb.max_len),
+          "encode_side_ms": host_ms(lambda: encode_side("cuda")),
+          "encode_side_plain_ms": host_ms(lambda: encode_side("torch"), 3),
+          "decode_table_build_ms": host_ms(lambda: decode_side("cuda")),
+          "decode_table_build_plain_ms": host_ms(lambda: decode_side("torch"),
+                                                 3),
+          "clock": "host, synchronized; the pipeline's own calls"})
+    return cb, hf.DecodeTable(cb, *parts)
+
+
 def phase_kernels(torch, dev) -> dict:
     """Every kernel against its plain version at the NYX 512^3 shapes."""
     from repro_torch.core import compressor as CZ
     from repro_torch.core import dualquant as dq
-    from repro_torch.core import huffman as hf
     from repro_torch.data import scidata
     from repro_torch.kernels.deflate import ops as deflate_ops
     from repro_torch.kernels.encode import ops as encode_ops
@@ -464,16 +564,12 @@ def phase_kernels(torch, dev) -> dict:
            library_ms=cuda_ms(torch, lambda: torch.bincount(
                flat, minlength=nbins), 10))
 
-    # the Huffman tree between the kernels runs on a host copy (its own
-    # stage time, host clock)
-    t0 = time.perf_counter()
-    lengths = hf.codeword_lengths(hist)
-    cb = hf.canonical_codebook(lengths).to(dev)
-    torch.cuda.synchronize()
-    emit({"phase": "huffman_tree_host", "seconds": time.perf_counter() - t0,
-          "max_len": int(cb.max_len)})
+    # 3. the codebook stage on the card: tree, canonical codebook, decode
+    # table (one CTA each), held bit for bit against the plain versions;
+    # beside the contract's bound, the latency of each one's serial chain
+    cb, tbl = huffman_stage(torch, dev, hist, record)
 
-    # 3. encode: 1 gather per symbol
+    # 4. encode: 1 gather per symbol
     cw, bw = encode_ops.encode_cuda(codes, cb)
     pcw, pbw = encode_ops.ref.encode_ref(codes, cb)
     diff = max(max_diff(torch, cw, pcw), max_diff(torch, bw, pbw))
@@ -486,7 +582,7 @@ def phase_kernels(torch, dev) -> dict:
            library_ms=cuda_ms(torch, lambda: torch.index_select(
                table, 0, flat), 10))
 
-    # 4. deflate: ~15 scalar ops per symbol (scan, shifts, two ORs)
+    # 5. deflate: ~15 scalar ops per symbol (scan, shifts, two ORs)
     chunk, sub = cfg.chunk_size, cfg.sub_size
     words, bits, gbits, gsyms = deflate_ops.deflate_cuda(cw, bw, chunk, sub)
     plain = deflate_ops.ref.deflate_ref(cw, bw, chunk, sub)
@@ -502,10 +598,9 @@ def phase_kernels(torch, dev) -> dict:
            8 * n + 4 * nc * chunk + 4 * nc + 8 * gbits.numel(), 15 * n)
     del cw, bw
 
-    # 5. inflate: ~12 scalar ops per symbol (the LUT lookup, the shift
+    # 6. inflate: ~12 scalar ops per symbol (the LUT lookup, the shift
     # and refill test, the staged store); bytes are the used stream words,
     # not the dense buffer
-    tbl = hf.build_decode_table(cb.lengths)
     starts = torch.arange(nc, device=dev, dtype=torch.int64) * chunk
     n_valid = (n - starts).clamp(0, chunk).to(torch.int32)
     dec = inflate_ops.inflate_cuda(words, n_valid, gbits, tbl, sub)
@@ -526,7 +621,7 @@ def phase_kernels(torch, dev) -> dict:
     del words, dec, codes, flat
     inflate_long_codes(torch, dev, chunk, sub)
 
-    # 6. reverse: ~10 scalar ops per value (3 axes x 3 scan steps, dequant);
+    # 7. reverse: ~10 scalar ops per value (3 axes x 3 scan steps, dequant);
     # then the same bytes viewed as (256) and (16,16) blocks
     rec = lorenzo_ops.reverse_blocks_cuda(delta, eb)
     diff = max_diff(torch, rec, lorenzo_ref.reverse_blocks_ref(delta, eb))
@@ -557,7 +652,7 @@ def phase_kernels(torch, dev) -> dict:
     del delta
     torch.cuda.empty_cache()
 
-    # 7-8. interpolation at NYX's first level (axis 0 of the prequantized
+    # 8-9. interpolation at NYX's first level (axis 0 of the prequantized
     # field: 262,144 rows, 256 evens + 3 pad, 256 odds); ~8 integer ops
     # per value
     from repro_torch.core import interp
@@ -589,7 +684,7 @@ def phase_kernels(torch, dev) -> dict:
            io_bytes, 8 * rows * mo, rows=rows, mo=mo, pe_width=pe.shape[1])
     del pe, odd, res, back
 
-    # 9-10. bit planes of fz's codes (Lorenzo 8x8x8 at the same eb) in
+    # 10-11. bit planes of fz's codes (Lorenzo 8x8x8 at the same eb) in
     # chunks of 512: ~2P + 6 scalar ops per symbol to encode, ~3P + 6 to
     # decode; the encode also on an unaligned copy of the codes (its bulk
     # copy then moves the 16 B-aligned window around each tile); both also
@@ -764,6 +859,8 @@ def main_fields(torch, dev):
 def phase_main(torch, dev) -> dict:
     """Each codec's path over the three fields, the launch counts set to
     0 before the path and read after it.  Returns the counts per codec."""
+    import numpy as np
+
     from repro_torch import codecs
     from repro_torch.core import interp
     from repro_torch.core import metrics as M
@@ -803,6 +900,20 @@ def phase_main(torch, dev) -> dict:
             launches = {k: v - before[k]
                         for k, v in dispatch.launch_counts().items()
                         if v != before[k]}
+            plain = {}
+            if "huffman.tree" in PATH_KERNELS[cname]:
+                # the same field through the plain versions, the Huffman
+                # codebook stage's included: the same container and output
+                t0 = time.perf_counter()
+                with dispatch.kernel_policy("torch"):
+                    pp = codec.pack(codec.encode(x))
+                    yp = codecs.decode(pp, device=dev)
+                plain = {"plain_route_same_container": same_containers(
+                    np, codecs, [p], [pp]),
+                    "plain_route_same_output": torch.equal(
+                        y.view(torch.int32), yp.view(torch.int32)),
+                    "plain_route_s": time.perf_counter() - t0}
+                del pp, yp
             emit({"phase": f"{tag}:{name}", "codec": cname,
                   "shape": list(x.shape), "raw_bytes": raw,
                   "ratio": raw / p.nbytes, "eb": eb,
@@ -814,11 +925,14 @@ def phase_main(torch, dev) -> dict:
                   "max_abs_err": err, "bound_held": held,
                   "n_outliers": int(c.payload["n_outliers"]),
                   "peak_device_bytes": torch.cuda.max_memory_allocated(),
-                  "launches": launches})
+                  "launches": launches, **plain})
             require(held and y.shape == x.shape
                     and bool(torch.isfinite(y).all()),
                     f"{tag} {name}: bound held {held}, shape "
                     f"{tuple(y.shape)}")
+            require(all(v for k, v in plain.items() if k != "plain_route_s"),
+                    f"{tag} {name}: the kernels' container or output differs "
+                    f"from the plain versions': {plain}")
             if cname == "cusz-i":
                 # one launch per level in each direction; two decodes
                 levels = len(interp.interp_plan(tuple(x.shape))[0])
@@ -1895,6 +2009,11 @@ def phase_guards(torch, dev, seed: int, params) -> dict:
     missing = [k for k in PATH_KERNELS["cusz"] if counts[k] == 0]
     violations = (dec_log.violations + s_log.violations
                   + ck_log.violations + nyx_log.violations)
+    # the codebook stage runs on the card: no read, waived or not, inside
+    # it on the cusz checkpoint and NYX paths
+    stage_reads = [h for log in (ck_log, nyx_log)
+                   for h in log.allowed_hits + log.violations
+                   if "core/huffman.py" in h or "kernels/huffman" in h]
     rec = {"phase": "guards", "builds": builds,
            "decode": {"steps": n, "transfers": moved.transfers,
                       "violations": dec_log.violations,
@@ -1912,6 +2031,7 @@ def phase_guards(torch, dev, seed: int, params) -> dict:
                    "same_output": nyx_same,
                    "violations": nyx_log.violations,
                    "waived_hits": _hits_by_site(nyx_log)},
+           "huffman_stage_reads": stage_reads,
            "kernels_missing": missing,
            "launches": {k: v for k, v in counts.items() if v}}
     emit(rec)
@@ -1924,6 +2044,8 @@ def phase_guards(torch, dev, seed: int, params) -> dict:
             and builds["batch_step_traces"] == 1 and same_builds,
             f"guards: rebuilds or differing tokens: {builds}")
     require(not violations, f"guards: unwaived host syncs: {violations}")
+    require(not stage_reads, "guards: reads inside the Huffman codebook "
+            f"stage: {stage_reads}")
     require(decode_ok and sched_ok,
             f"guards: the steady-state decode loop moved host data or read "
             f"the card: {rec['decode']} {rec['scheduler']}")

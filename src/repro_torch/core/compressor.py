@@ -260,6 +260,11 @@ def pack_blob(blob: CompressedBlob) -> dict:
     return d
 
 
+def packed_nbytes(d: dict) -> int:
+    """Bytes of a packed blob's arrays (`pack_blob`'s dict)."""
+    return sum(np.asarray(v).nbytes for v in d.values())
+
+
 def unpack_blob(d: dict, device) -> CompressedBlob:
     """Packed arrays -> a blob of tensors on `device`."""
     enc = stages.get_encoder("huffman").unpack_payload(d, None, None)

@@ -21,7 +21,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.lorenzo.ref import inv_two_eb, two_eb
+from repro_torch.kernels.lorenzo.ref import _shift1, inv_two_eb, two_eb
 
 # Paper defaults (§3.1.1).
 DEFAULT_BLOCKS = {1: (256,), 2: (16, 16), 3: (8, 8, 8)}
@@ -45,6 +45,26 @@ def dequant(q: torch.Tensor, eb: float,
             dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Inverse of PREQUANT: d• = d° · f32(2·eb)."""
     return (q.to(torch.float32) * two_eb(eb, q.device)).to(dtype)
+
+
+def lorenzo_delta(q: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
+    """POSTQUANT deltas: (1 - S) along each axis with a zero-filled shift,
+    i.e. δ = d° - ℓ(d°) with the paper's zero padding layer.  Exact in
+    int32."""
+    delta = q
+    for ax in axes:
+        delta = delta - _shift1(delta, ax)
+    return delta
+
+
+def lorenzo_reconstruct(delta: torch.Tensor, axes: Sequence[int]
+                        ) -> torch.Tensor:
+    """Inverse of `lorenzo_delta`: an inclusive prefix sum along each
+    axis, in the dtype of `delta`."""
+    q = delta
+    for ax in axes:
+        q = torch.cumsum(q, dim=ax, dtype=delta.dtype)
+    return q
 
 
 def padded_shape(shape: Sequence[int], block: Sequence[int]
@@ -87,6 +107,25 @@ def block_merge(x: torch.Tensor, block: Sequence[int]) -> torch.Tensor:
     x = x.permute(perm)
     shp = [x.shape[2 * i] * x.shape[2 * i + 1] for i in range(n)]
     return x.reshape(shp)
+
+
+def blocked_delta(x: torch.Tensor, eb: float, block: Sequence[int]
+                  ) -> torch.Tensor:
+    """pad -> PREQUANT -> block -> Lorenzo delta on the in-block axes:
+    int32 deltas shaped [nb..., b...].  The unfused form of the
+    `lorenzo.dualquant` kernel's delta (the pipeline calls the kernel)."""
+    n = x.ndim
+    q = prequant(block_split(pad_to_blocks(x, block), block), eb)
+    return lorenzo_delta(q, range(n, 2 * n))
+
+
+def blocked_reconstruct(delta: torch.Tensor, eb: float,
+                        block: Sequence[int], orig_shape: Sequence[int],
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Prefix-sum inverse per block -> merge -> crop -> dequant."""
+    n = len(block)
+    q = block_merge(lorenzo_reconstruct(delta, range(n, 2 * n)), block)
+    return dequant(q[tuple(slice(0, s) for s in orig_shape)], eb, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -8,11 +8,12 @@ Stages (paper Fig. 1, bottom):
   decode: gap-array parallel inflate               -> `inflate_gap`
           gap-less (format v1) sequential inflate  -> `inflate`
 
-The tree build is a serial loop of up to nbins-1 merges over a 4 KB
-histogram.  It runs on a host copy of the histogram whatever the input
-device: on CUDA tensors a Python loop would launch thousands of tiny
-kernels.  Its output (bitlengths, and the canonical tables derived from
-them) is moved to the data's device once per field.
+Stages 2-3 and the decode table dispatch to the codebook kernels
+(`repro_torch.kernels.huffman`) like the other stages: on a CUDA tensor
+the tree, the canonical codebook and the decode table are built on the
+card, so the pipeline reads nothing back between the histogram and the
+encode, or between the stored bitlengths and the inflate; on a CPU tensor
+their plain versions run.
 
 `encode`, `deflate` and `inflate_gap` here are the plain PyTorch versions
 of the CUDA kernels (`repro_torch.kernels.{encode,deflate,inflate}`),
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import heapq
 from collections import OrderedDict
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,57 +94,15 @@ def codeword_lengths_host(freq) -> np.ndarray:
     return lengths.astype(np.int32)
 
 
-# repro-lint: allow[host-sync] the Huffman tree is built on the host, as
-# in the paper: one copy of the nbins-count histogram, then host lists
-def codeword_lengths(freq: torch.Tensor) -> torch.Tensor:
-    """Two-queue Huffman on a host copy of `freq`.
-
-    With symbols sorted by frequency (stable: ties keep symbol order),
-    merged internal nodes come out in non-decreasing frequency order, so
-    two pointer-queues replace the heap.  Same picks and tie-breaks as the
-    reference's device loop.  Returns int32 bitlengths on the CPU
-    (0 = unused)."""
-    f = freq.detach().to("cpu", torch.int64)
-    k = f.numel()
-    active = f > 0
-    n_active = int(active.sum())
-    big = (2 ** 31 - 1) // 4
-    keyed = torch.where(active, f, big)
-    order = torch.argsort(keyed, stable=True)           # active symbols first
-    lf = keyed[order].tolist()                          # leaf freqs, sorted
-
-    n_int = k - 1                                       # max internal nodes
-    intq = [big] * n_int                                # merged-node freqs
-    ch1 = [0] * n_int                                   # children (node ids:
-    ch2 = [0] * n_int                                   #  leaf i<k, int. k+j)
-    i = j = 0
-    for t in range(max(n_active - 1, 0)):
-        picked = []
-        for _ in range(2):
-            if i < n_active and (j >= t or lf[i] <= intq[j]):
-                picked.append((lf[i], i))
-                i += 1
-            else:
-                picked.append((intq[j], k + j))
-                j += 1
-        (f1, n1), (f2, n2) = picked
-        intq[t] = f1 + f2
-        ch1[t] = n1
-        ch2[t] = n2
-
-    # parents are created after their children: walk internal nodes from
-    # the root (last created) down, propagating depth
-    depth = [0] * (k + n_int)
-    for t in range(n_active - 2, -1, -1):
-        d = depth[k + t] + 1
-        depth[ch1[t]] = d
-        depth[ch2[t]] = d
-
-    lengths = torch.zeros(k, dtype=torch.int32)
-    lengths[order] = torch.tensor(depth[:k], dtype=torch.int32)
-    if n_active == 1:                   # single symbol: a 1-bit code
-        lengths = torch.where(active, 1, lengths).to(torch.int32)
-    return torch.where(active, lengths, 0).to(torch.int32)
+def codeword_lengths(freq: torch.Tensor, impl: Optional[str] = None
+                     ) -> torch.Tensor:
+    """Huffman codeword lengths of the histogram `freq`: int32 [k] on its
+    device, 0 for unused symbols.  The reference's two-queue merge over
+    symbols sorted by frequency (ties in symbol order), by the
+    `huffman.tree` kernel or its plain version."""
+    if dispatch.resolve(_ops.TREE.name, freq, impl) == "cuda":
+        return _ops.tree_cuda(freq)
+    return _ref.codeword_lengths_ref(freq)
 
 
 # ---------------------------------------------------------------------------
@@ -159,51 +118,20 @@ class Codebook(NamedTuple):
     max_len: torch.Tensor     # 0-d int32
 
     def to(self, device) -> "Codebook":
-        # repro-lint: allow[host-sync] the host-built codebook goes to the
-        # card once per encode (six small pageable copies)
         return Codebook(*(t.to(device) for t in self))
 
 
-def _length_counts(lengths: torch.Tensor) -> torch.Tensor:
-    """[MAXLEN+1] int64 number of symbols per bitlength (length 0 not
-    counted)."""
-    lc = lengths.long().clamp(0, MAXLEN)
-    cnt = torch.zeros(MAXLEN + 1, dtype=torch.int64, device=lengths.device)
-    cnt.scatter_add_(0, lc, torch.ones_like(lc))
-    cnt[0] = 0
-    return cnt
-
-
-def canonical_codebook(lengths: torch.Tensor) -> Codebook:
-    """Canonical codes from bitlengths alone (Schwartz-Kallick).
+def canonical_codebook(lengths: torch.Tensor, impl: Optional[str] = None
+                       ) -> Codebook:
+    """Canonical codes from bitlengths alone (Schwartz-Kallick), on the
+    device of `lengths`, by the `huffman.codebook` kernel or its plain
+    version.
 
     Bijective, bitlength-preserving and decodable without the tree via
     (first_code, start_idx, sym_canon)."""
-    dev = lengths.device
-    lengths = lengths.to(torch.int32)
-    k = lengths.numel()
-    cnt = _length_counts(lengths)
-    cnt_l = cnt.tolist()  # repro-lint: allow[host-sync] the first codes are a 32-step host recurrence over the length counts
-    fc = [0] * (MAXLEN + 1)
-    for l in range(1, MAXLEN + 1):          # u32 recurrence, wraps like it
-        fc[l] = ((fc[l - 1] + cnt_l[l - 1]) << 1) & _M32
-    first_code = torch.tensor(fc, dtype=torch.int64, device=dev)
-    start_idx = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                           torch.cumsum(cnt, 0)[:-1]])
-    # canonical order: (length, symbol) ascending, unused symbols last
-    key = (torch.where(lengths > 0, lengths, MAXLEN + 1).long() * (2 * k)
-           + torch.arange(k, device=dev))
-    sym_canon = torch.argsort(key, stable=True)
-    pos = torch.empty(k, dtype=torch.int64, device=dev)
-    pos[sym_canon] = torch.arange(k, device=dev)     # canonical rank of sym
-    lc = lengths.long().clamp(0, MAXLEN)
-    rank = pos - start_idx[lc]
-    codes = (first_code[lc] + rank) & _M32
-    codes = torch.where(lengths > 0, codes, 0)
-    max_len = lengths.max() if k else torch.tensor(0)
-    return Codebook(lengths, as_u32(codes), as_u32(first_code),
-                    start_idx.to(torch.int32), sym_canon.to(torch.int32),
-                    max_len.to(torch.int32))
+    if dispatch.resolve(_ops.CODEBOOK.name, lengths, impl) == "cuda":
+        return _ops.codebook_cuda(lengths)
+    return _ref.canonical_codebook_ref(lengths)
 
 
 def packed_codebook(cb: Codebook, unit_bits: int) -> torch.Tensor:
@@ -320,26 +248,11 @@ class DecodeTable(NamedTuple):
     `lut` caches that decode for the first LUT_BITS bits of a peek: entry
     p is (sym << 6) | len whenever every peek starting with p decodes to
     the same (sym, len) with len <= LUT_BITS, else 0 (the peek needs the
-    interval compare).  See `build_lut`."""
+    interval compare).  See `kernels.huffman.ref.build_lut_ref`."""
     cb: Codebook
     thresh: torch.Tensor      # [MAXLEN + 1] uint32 end-of-interval bounds
     lmask: torch.Tensor       # [MAXLEN + 1] int32 validity of each bound
     lut: torch.Tensor         # [2^LUT_BITS] int32 packed (sym, len) or 0
-
-    def to(self, device) -> "DecodeTable":
-        # repro-lint: allow[host-sync] the host-built decode table goes to
-        # the card once per codebook (cached)
-        return DecodeTable(self.cb.to(device), self.thresh.to(device),
-                           self.lmask.to(device), self.lut.to(device))
-
-
-def _length_bounds(cb: Codebook) -> Tuple[torch.Tensor, torch.Tensor]:
-    cnt = _length_counts(cb.lengths)
-    ell = torch.arange(MAXLEN + 1, device=cnt.device)
-    span = (u32_values(cb.first_code) + cnt) & _M32
-    thresh = (span << (32 - ell).clamp(0, 31)) & _M32
-    lmask = ((ell >= 1) & (ell < cb.max_len)).to(torch.int32)
-    return as_u32(thresh), lmask
 
 
 def peek_decode(peek: torch.Tensor, cb: Codebook, thresh: torch.Tensor,
@@ -360,39 +273,15 @@ def peek_decode(peek: torch.Tensor, cb: Codebook, thresh: torch.Tensor,
     return cb.sym_canon[idx], ln
 
 
-def build_lut(cb: Codebook, thresh: torch.Tensor, lmask: torch.Tensor
-              ) -> torch.Tensor:
-    """The [2^LUT_BITS] decode table of `DecodeTable.lut`.
-
-    The decoded length is monotone in the peek, so it is constant over
-    the peeks that start with prefix p exactly when it agrees at the
-    lowest and the highest of them; a length <= LUT_BITS then fixes the
-    codeword, hence the symbol, from p alone.  Every other prefix maps to
-    0 and takes the interval compare, so the table gives exactly what
-    `peek_decode` gives for every 32-bit peek, clamps included.  For a
-    complete code with max_len <= LUT_BITS it is the reference's dense
-    (symbol, length) LUT (`repro.core.huffman._build_lut`)."""
-    k = cb.sym_canon.numel()
-    if k >= 1 << 25:
-        raise ValueError(f"{k} symbols do not fit a LUT entry (the symbol "
-                         "must stay below 2^25)")
-    low = torch.arange(1 << LUT_BITS, dtype=torch.int64) << (32 - LUT_BITS)
-    high = low | ((1 << (32 - LUT_BITS)) - 1)
-    sym, ln = peek_decode(low, cb, thresh, lmask)
-    _, ln_high = peek_decode(high, cb, thresh, lmask)
-    ok = (ln == ln_high) & (ln <= LUT_BITS)
-    return torch.where(ok, (sym.long() << 6) | ln, 0).to(torch.int32)
-
-
-def build_decode_table(lengths: torch.Tensor) -> DecodeTable:
-    """Codebook, decode bounds and LUT from stored bitlengths, built on
-    the host and moved to the device of `lengths`."""
-    # repro-lint: allow[host-sync] the decode table is built on the host
-    # from one copy of the stored bitlengths
-    cb = canonical_codebook(lengths.detach().to("cpu"))
-    thresh, lmask = _length_bounds(cb)
-    lut = build_lut(cb, thresh, lmask)
-    return DecodeTable(cb, thresh, lmask, lut).to(lengths.device)
+def build_decode_table(lengths: torch.Tensor, impl: Optional[str] = None
+                       ) -> DecodeTable:
+    """Codebook, decode bounds and LUT from stored bitlengths, on the
+    device of `lengths` (the `huffman.codebook` and
+    `huffman.decode_table` kernels, or their plain versions)."""
+    cb = canonical_codebook(lengths, impl)
+    if dispatch.resolve(_ops.DECODE_TABLE.name, lengths, impl) == "cuda":
+        return DecodeTable(cb, *_ops.decode_table_cuda(cb))
+    return DecodeTable(cb, *_ref.decode_table_ref(cb))
 
 
 # identity-keyed LRU: repeated decodes of the same stored codebook reuse
@@ -403,14 +292,15 @@ _DECODE_TABLE_CACHE: "OrderedDict[int, Tuple[torch.Tensor, DecodeTable]]" = \
 _DECODE_TABLE_CACHE_SIZE = 64
 
 
-def decode_table(lengths: torch.Tensor) -> DecodeTable:
+def decode_table(lengths: torch.Tensor, impl: Optional[str] = None
+                 ) -> DecodeTable:
     """Cached `build_decode_table` (one build per codebook tensor)."""
     key = id(lengths)
     hit = _DECODE_TABLE_CACHE.get(key)
     if hit is not None and hit[0] is lengths:
         _DECODE_TABLE_CACHE.move_to_end(key)
         return hit[1]
-    tbl = build_decode_table(lengths)
+    tbl = build_decode_table(lengths, impl)
     _DECODE_TABLE_CACHE[key] = (lengths, tbl)
     while len(_DECODE_TABLE_CACHE) > _DECODE_TABLE_CACHE_SIZE:
         _DECODE_TABLE_CACHE.popitem(last=False)
@@ -568,3 +458,12 @@ def inflate(words: torch.Tensor, bits_used: torch.Tensor,
         return inflate_lut(words, n_valid, cb.to(words.device),
                            lut_bits=max(1, int(max_len_static)))
     return inflate_bitscan(words, bits_used, n_valid, cb.to(words.device))
+
+
+# the codebook kernels' wrappers and plain versions take the types above;
+# imported last, as they import this module
+from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.kernels.huffman import ops as _ops  # noqa: E402
+from repro_torch.kernels.huffman import ref as _ref  # noqa: E402
+
+_length_bounds = _ref.length_bounds_ref

@@ -281,16 +281,19 @@ class LorenzoPredictor(Predictor):
 
 class HuffmanEncoder(Encoder):
     name = "huffman"
-    kernels = ("histogram", "encode", "deflate", "inflate")
+    kernels = ("histogram", "huffman.tree", "huffman.codebook",
+               "huffman.decode_table", "encode", "deflate", "inflate")
     payload_keys = ("words", "bits_used", "n_valid", "lengths", "max_len",
                     "gap_bits", "gap_syms")
 
     def encode(self, codes, cfg, pp):
         hist = hist_ops.histogram(codes, cfg.nbins,
                                   impl=pp.for_kernel("histogram"))
-        # the tree build runs on a host copy of the 4 KB histogram
-        lengths = hf.codeword_lengths(hist)
-        cb = hf.canonical_codebook(lengths).to(codes.device)
+        # the codebook is built on the codes' device: no read of the card
+        # between the histogram and the deflate
+        lengths = hf.codeword_lengths(hist, impl=pp.for_kernel("huffman.tree"))
+        cb = hf.canonical_codebook(lengths,
+                                   impl=pp.for_kernel("huffman.codebook"))
         cw, bw = encode_ops.encode(codes, cb,
                                    impl=pp.for_kernel("encode"))
         words, bits, gap_bits, gap_syms = deflate_ops.deflate(
@@ -313,7 +316,10 @@ class HuffmanEncoder(Encoder):
         # gap-less stream (table walk or bit scan); the gap decoder serves
         # every bucket
         ml_b = hf.bucket_max_len(max(1, max_len))
-        table = hf.decode_table(payload["lengths"])
+        # the decode side resolves its policy before the pipeline's
+        table = hf.decode_table(payload["lengths"],
+                                impl=dispatch.current_policy()
+                                or cfg.kernel_impl)
         return (ml_b,), table
 
     def decode(self, payload, aux, static_meta, cfg, pp):

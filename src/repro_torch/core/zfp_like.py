@@ -23,9 +23,12 @@ results below float32's normal range flushed to zero.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+from .dualquant import block_merge, block_split, pad_to_blocks
 
 _Q = 30                      # fixed-point fraction bits
 _M32 = 0xFFFFFFFF
@@ -116,3 +119,29 @@ def decode_blocks(u: torch.Tensor, e: torch.Tensor, nblock: int
     for ax in reversed(baxes):
         q = _inv_lift(q, ax)
     return q.to(torch.float32) / float(1 << _Q) * _exp2(e)
+
+
+def compress_decompress(x: torch.Tensor, rate_bits: float
+                        ) -> Tuple[torch.Tensor, float]:
+    """Fixed-rate roundtrip: (reconstruction, achieved bits per value).
+
+    The rate is the planes kept per coefficient plus the 16-bit block
+    header amortized over a 4^d block, as in ZFP.  Inputs of more than 3
+    dims are a batch of 3-D fields (the paper's QMCPACK)."""
+    planes = max(1, int(round(rate_bits)))
+    nd = min(x.ndim, 3)
+    xf = x.to(torch.float32)
+    if x.ndim > 3:
+        lead = math.prod(x.shape[:-3])
+        xf = xf.reshape((lead,) + tuple(x.shape[-3:]))
+        block = (1, 4, 4, 4)
+        xb = block_split(pad_to_blocks(xf, block), block).squeeze(-4)
+        rec = decode_blocks(*encode_blocks(xb, planes, nd), nd)
+        rec = block_merge(rec.unsqueeze(-4), block)
+    else:
+        block = (4,) * nd
+        xb = block_split(pad_to_blocks(xf, block), block)
+        rec = block_merge(decode_blocks(*encode_blocks(xb, planes, nd), nd),
+                          block)
+    rec = rec[tuple(slice(0, s) for s in xf.shape)].reshape(x.shape)
+    return rec, planes + 16.0 / 4 ** nd

@@ -6,4 +6,4 @@ the kernel is held against on the card).  `dispatch` is the policy layer;
 """
 from . import dispatch  # noqa: F401  (import first: ops modules register)
 from . import (bitshuffle, deflate, encode, histogram,  # noqa: F401
-               inflate, interp, lorenzo)
+               huffman, inflate, interp, lorenzo)

@@ -51,6 +51,10 @@ SIGNATURES = {
     "rt_interp_odd": [_I, _P, _P, _P, _LL, _LL, _LL, _P],
     "rt_bitshuffle_encode": [_I, _P, _P, _LL, _LL, _I, _I, _P],
     "rt_bitshuffle_decode": [_I, _P, _P, _LL, _LL, _I, _I, _P],
+    "rt_huffman_tree": [_I, _P, _P, _P, _I, _P],
+    "rt_huffman_codebook": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "rt_huffman_decode_table": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _P],
 }
 
 _lock = threading.Lock()

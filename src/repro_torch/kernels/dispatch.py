@@ -14,8 +14,8 @@ Resolution order (most specific wins):
      threaded through ``pipeline_policy``)
   4. "auto"
 
-Every stage of the three codecs (cusz, cusz-i, fz) has a CUDA kernel, so
-there is no fallback:
+Every stage of the three codecs (cusz, cusz-i, fz), the Huffman codebook
+stage included, has a CUDA kernel, so there is no fallback:
 a CUDA tensor under "auto" launches the kernel or raises.  Each
 registered kernel carries a ``launches`` count that its wrapper bumps
 where it launches the kernel, and nowhere else.
@@ -142,9 +142,10 @@ def resolve(kernel: str, where, impl: Optional[str] = None) -> str:
 # ---------------------------------------------------------------------------
 
 PIPELINE_STAGES = ("lorenzo.dualquant", "lorenzo.reverse", "histogram",
-                   "encode", "deflate", "inflate", "interp.predict",
-                   "interp.reconstruct", "bitshuffle.encode",
-                   "bitshuffle.decode")
+                   "huffman.tree", "huffman.codebook",
+                   "huffman.decode_table", "encode", "deflate", "inflate",
+                   "interp.predict", "interp.reconstruct",
+                   "bitshuffle.encode", "bitshuffle.decode")
 
 
 @dataclasses.dataclass(frozen=True)

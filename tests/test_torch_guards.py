@@ -24,7 +24,7 @@ import torch
 
 from repro_torch import codecs, configs
 from repro_torch.core import compressor as CZ
-from repro_torch.core import huffman
+from repro_torch.core import dualquant
 from repro_torch.debug import (HostSyncError, RecompileError, TransferError,
                                host_sync_guard, no_implicit_transfers,
                                no_recompiles, note_build)
@@ -355,17 +355,9 @@ PORT_ONLY = {
         "the one host copy behind pack(), to_arrays() and the crc32",
     ("codecs/lossless.py", "_storage_array"):
         "lossless pack's host copy (the reference waives pack itself)",
-    ("core/huffman.py", "codeword_lengths"):
-        "the Huffman tree is built on the host from one histogram copy; "
-        "the reference builds it on the device",
-    ("core/huffman.py", "canonical_codebook"):
-        "the canonical first codes are a 32-step host recurrence",
-    ("core/huffman.py", "Codebook.to"):
-        "the host-built codebook's copy to the card (card runs only)",
-    ("core/huffman.py", "DecodeTable.to"):
-        "the host-built decode table's copy to the card (card runs only)",
-    ("core/huffman.py", "build_decode_table"):
-        "the stored bitlengths' copy to the host for the decode table",
+    ("kernels/huffman/ref.py", "codeword_lengths_ref"):
+        "plain version, CPU tensors only: the tree kernel builds the "
+        "lengths on the card, as the reference does on its device",
     ("core/dualquant.py", "extract_outliers"):
         "torch.nonzero sizes the outlier compaction (a read inside the "
         "operator; the reference gathers into a fixed capacity under jit)",
@@ -435,17 +427,23 @@ def test_every_reference_waiver_has_a_port_counterpart_or_reason():
 def test_sync_debug_mode_attributes_copies_on_card(waived):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    freq = torch.arange(1, 17, dtype=torch.int32, device="cuda")
-    want = huffman.codeword_lengths(freq)
+    delta = torch.arange(-600, 600, dtype=torch.int32, device="cuda")
+    in_cap = delta.abs() < 512
+
+    def outliers():
+        return dualquant.extract_outliers(delta, in_cap, 256)
+
+    want = outliers()
     before = torch.cuda.get_sync_debug_mode()
     with host_sync_guard({}, strict=False) as log:
-        got = huffman.codeword_lengths(freq)
-    # the histogram's copy to the host is a cudaMemcpy + stream sync that
-    # no Python hook sees; the sync-debug mode's warning is attributed
-    assert any("sync-debug" in v and "huffman.py" in v
+        got = outliers()
+    # torch.nonzero's count is a cudaMemcpy + stream sync inside the C++
+    # operator that no Python hook sees; the sync-debug mode's warning is
+    # attributed
+    assert any("sync-debug" in v and "dualquant.py" in v
                for v in log.violations), log.violations
     with host_sync_guard(waived) as log:
-        huffman.codeword_lengths(freq)
+        outliers()
     assert log.violations == [] and log.allowed_hits
     assert torch.cuda.get_sync_debug_mode() == before
-    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
