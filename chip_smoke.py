@@ -247,6 +247,9 @@ KERNELS = {
 # one shared-memory round trip of a dependent chain: ~30 SM cycles on
 # Hopper, at the card's maximum SM clock (nvidia-smi clocks.max.sm)
 SMEM_ROUND_TRIP_CYCLES = 30
+# the card's spin ahead of a `device_ms` run: ~4 ms at 1,980 MHz, longer
+# than the host takes to enqueue 20 wrapper calls
+SPIN_CYCLES = 8_000_000
 
 # qwen3-4b (src/repro/configs/qwen3_4b.py): the widths of the consumer
 # phases
@@ -394,36 +397,120 @@ def inflate_long_codes(torch, dev, chunk: int, sub: int) -> None:
             f"{diff}")
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call on the card alone: the calls queue
+    behind a spin of the card (`torch.cuda._sleep`) long enough for the
+    host to enqueue all of them, so the events time the launches back to
+    back and not the host's wrapper (which bounds `cuda_ms` for kernels
+    of a few microseconds)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def tree_phases(torch, freq, clock_mhz: float) -> dict:
+    """One tree launch with its clock stamps: SM cycles per phase (sort,
+    merge, depth, scatter) and per pick of the merge."""
+    from repro_torch.kernels.huffman import ops as huff_ops
+    stamps = torch.zeros(huff_ops.TREE_STAMPS, dtype=torch.int64,
+                         device=freq.device)
+    lengths = huff_ops.tree_cuda(freq, stamps)
+    require(torch.equal(lengths, huff_ops.ref.codeword_lengths_ref(freq)),
+            "huffman.tree with clock stamps differs from its plain version")
+    st = [int(v) for v in stamps.cpu()]
+    cycles = {name: st[i + 1] - st[i] for i, name in
+              enumerate(("sort", "merge", "depth", "scatter"))}
+    picks = 2 * max(int((freq > 0).sum()) - 1, 0)
+    return {"nbins": freq.numel(), "picks": picks, "cycles": cycles,
+            "total_cycles": st[-1] - st[0],
+            "cycles_per_pick": cycles["merge"] / max(picks, 1),
+            "total_us_at_max_clock": (st[-1] - st[0]) / clock_mhz}
+
+
 def huffman_stage(torch, dev, hist, record):
     """The three codebook kernels on NYX's histogram, each against its
     plain version (CUDA-event times; the plain tree's merge runs on a host
     copy), then the stage as the pipeline runs it, on the host clock:
     tree + codebook (the encode side) and codebook + decode table (the
-    decode side's build, once per new codebook).  Returns the codebook and
-    the decode table."""
+    decode side's build, once per new codebook).  Beside each row: its
+    time on the card alone (`device_ms`), the launch floor
+    (`yardstick:launch`) and the latency of its serial chain, and the
+    share of the larger of the two in its time.  The tree's clock stamps
+    on NYX's histogram and on 16,384 active bins.  Returns the codebook
+    and the decode table."""
     from repro_torch.core import huffman as hf
+    from repro_torch.kernels import _build
     from repro_torch.kernels.huffman import ops as huff_ops
 
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
-    round_trip_ms = SMEM_ROUND_TRIP_CYCLES / (clock_mhz * 1e3)
     k = hist.numel()
     n_active = int((hist > 0).sum())
-    log_p = max(k - 1, 0).bit_length()
-    p = 1 << log_p
-    sort_ops = p // 2 * log_p * (log_p + 1) // 2      # compare-exchanges
+    picks = 2 * max(n_active - 1, 0)
+
+    def enqueue_ms(fn, reps=20):
+        """Host milliseconds per wrapper call, the card left to run."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        return t
+
+    # the launch floor: an empty one-CTA kernel of 1024 threads with one
+    # barrier, timed as the rows are
+    lib, stream = _build.lib(), _build.stream(hist.device)
+    index = hist.device.index
+
+    def floor():
+        _build.check("launch floor", lib.rt_launch_floor(index, stream))
+    launch = {"ms": cuda_ms(torch, floor, 20),
+              "device_ms": device_ms(torch, floor, 20)}
+    launch["enqueue_ms"] = enqueue_ms(floor)
+    emit({"phase": "yardstick:launch", "threads": 1024, **launch})
+
+    phases = tree_phases(torch, hist, clock_mhz)
+    emit({"phase": "huffman.tree:phases", "sm_clock_mhz": clock_mhz,
+          **phases})
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    wide = torch.randint(1, 1000, (16384,), dtype=torch.int32, device=dev,
+                         generator=g)
+    emit({"phase": "huffman.tree:phases:16384", "sm_clock_mhz": clock_mhz,
+          "ms": cuda_ms(torch, lambda: huff_ops.tree_cuda(wide), 5),
+          **tree_phases(torch, wide, clock_mhz)})
+    # the tree's chain: two dependent picks per merged node, each at one
+    # shared-memory round trip, or at the measured cycles per pick where
+    # the kernel beats that
+    pick_cycles = min(SMEM_ROUND_TRIP_CYCLES, phases["cycles_per_pick"])
 
     def diff_of(a, b):
         return max(max_diff(torch, x, y) for x, y in zip(a, b))
 
-    def stage_record(name, diff, fn, plain, nbytes, ops, chain_steps):
-        record(name, diff, cuda_ms(torch, fn, 20), cuda_ms(torch, plain, 3),
-               nbytes, ops, nbins=k, n_active=n_active,
-               chain_steps=chain_steps,
-               chain_bound_ms=chain_steps * round_trip_ms,
-               smem_round_trip_cycles=SMEM_ROUND_TRIP_CYCLES,
+    def stage_record(name, diff, fn, plain, nbytes, ops, chain_steps,
+                     step_cycles=SMEM_ROUND_TRIP_CYCLES):
+        ms = cuda_ms(torch, fn, 20)
+        chain_ms = chain_steps * step_cycles / (clock_mhz * 1e3)
+        floor_ms = max(chain_ms, launch["ms"])
+        record(name, diff, ms, cuda_ms(torch, plain, 3), nbytes, ops,
+               nbins=k, n_active=n_active, chain_steps=chain_steps,
+               chain_step_cycles=step_cycles, chain_bound_ms=chain_ms,
+               launch_floor_ms=launch["ms"], floor_ms=floor_ms,
+               floor_share=floor_ms / ms, device_ms=device_ms(torch, fn, 20),
+               enqueue_ms=enqueue_ms(fn),
+               launch_floor_device_ms=launch["device_ms"],
                sm_clock_mhz=clock_mhz)
 
     lengths = huff_ops.tree_cuda(hist)
@@ -431,15 +518,16 @@ def huffman_stage(torch, dev, hist, record):
                  diff_of([lengths], [huff_ops.ref.codeword_lengths_ref(hist)]),
                  lambda: huff_ops.tree_cuda(hist),
                  lambda: huff_ops.ref.codeword_lengths_ref(hist),
-                 8 * k, sort_ops + 2 * max(n_active - 1, 0),
-                 2 * max(n_active - 1, 0))
+                 # ops: ~8 integer ops per key in each of the sort's 4
+                 # passes, ~10 per pick
+                 8 * k, 32 * k + 10 * picks, picks, pick_cycles)
     cb = huff_ops.codebook_cuda(lengths)
     stage_record("huffman.codebook",
                  diff_of(cb, huff_ops.ref.canonical_codebook_ref(lengths)),
                  lambda: huff_ops.codebook_cuda(lengths),
                  lambda: huff_ops.ref.canonical_codebook_ref(lengths),
-                 12 * k + 8 * (hf.MAXLEN + 1) + 4, sort_ops + 2 * k,
-                 hf.MAXLEN)
+                 # ops: ~10 per symbol (its class, rank and codeword)
+                 12 * k + 8 * (hf.MAXLEN + 1) + 4, 10 * k, hf.MAXLEN)
     parts = huff_ops.decode_table_cuda(cb)
     lut_n = 1 << hf.LUT_BITS
     stage_record("huffman.decode_table",
@@ -473,6 +561,36 @@ def huffman_stage(torch, dev, hist, record):
                                                  3),
           "clock": "host, synchronized; the pipeline's own calls"})
     return cb, hf.DecodeTable(cb, *parts)
+
+
+def nyx_histogram(torch, dev):
+    """The histogram of NYX 512^3's dual-quant codes (kernels 1 and 3),
+    as the main path and `phase_kernels` make it."""
+    from repro_torch.core import compressor as CZ
+    from repro_torch.core import dualquant as dq
+    from repro_torch.data import scidata
+    from repro_torch.kernels.histogram import ops as hist_ops
+    from repro_torch.kernels.lorenzo import ops as lorenzo_ops
+
+    cfg = CZ.CompressorConfig(eb=1e-4, eb_mode="valrel")
+    x = scidata.nyx_like((512, 512, 512), seed=3, device=dev)
+    eb = CZ.resolve_eb(cfg, x)
+    block = cfg.block_for(3)
+    xb = dq.block_split(dq.pad_to_blocks(x, block), block)
+    codes, _ = lorenzo_ops.dualquant_blocks_cuda(xb, eb, cfg.nbins)
+    return hist_ops.histogram_cuda(codes, cfg.nbins)
+
+
+def phase_huffman(torch, dev) -> None:
+    """`--huffman`: the codebook stage alone on NYX's histogram."""
+    def record(name, diff, ms, plain_ms, nbytes, ops, **extra):
+        b, by = bound_ms(nbytes, ops)
+        emit({"phase": f"kernel:{name}", "equal": diff == 0.0,
+              "max_abs_err": diff, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b, "bound_by": by, **extra})
+        require(diff == 0.0, f"{name} kernel differs from its plain version "
+                f"by {diff}")
+    huffman_stage(torch, dev, nyx_histogram(torch, dev), record)
 
 
 def phase_kernels(torch, dev) -> dict:
@@ -3213,6 +3331,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the consumer, serve and train phases' "
                          "weights, caches and tokens")
+    ap.add_argument("--huffman", action="store_true",
+                    help="run only the Huffman codebook stage's kernels "
+                         "on NYX 512^3's histogram (rows 11-13, the "
+                         "launch floor, the tree's clock stamps)")
     ap.add_argument("--dryrun-cell", nargs=3, default=None,
                     metavar=("ARCH", "SHAPE", "LAYERS"),
                     help=argparse.SUPPRESS)
@@ -3232,6 +3354,9 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_env(torch)
     timed("build", phase_build)
+    if args.huffman:
+        timed("huffman", phase_huffman, torch, dev)
+        return 0
     kernels = timed("kernels", phase_kernels, torch, dev)
     timed("golden", phase_golden, torch)
     timed("quality", phase_quality, torch)

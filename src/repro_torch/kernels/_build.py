@@ -51,11 +51,17 @@ SIGNATURES = {
     "rt_interp_odd": [_I, _P, _P, _P, _LL, _LL, _LL, _P],
     "rt_bitshuffle_encode": [_I, _P, _P, _LL, _LL, _I, _I, _P],
     "rt_bitshuffle_decode": [_I, _P, _P, _LL, _LL, _I, _I, _P],
-    "rt_huffman_tree": [_I, _P, _P, _P, _I, _P],
-    "rt_huffman_codebook": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "rt_huffman_tree": [_I, _P, _P, _P, _I, _P, _P],
+    "rt_huffman_codebook": [_I, _P, _P, _P, _I, _P],
     "rt_huffman_decode_table": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _P],
+    "rt_huffman_tree_scratch_bytes": [_I],
+    "rt_huffman_codebook_scratch_bytes": [_I],
+    "rt_launch_floor": [_I, _P],
 }
+#: entry points that return something other than a CUDA error code
+RESTYPES = {"rt_huffman_tree_scratch_bytes": _LL,
+            "rt_huffman_codebook_scratch_bytes": _LL}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -128,6 +134,8 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built or loaded on first call, which
     ``debug.no_recompiles`` counts as "kernels")."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             from repro_torch.debug import guards
@@ -137,15 +145,17 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, _I)
             _lib = handle
     return _lib
 
 
 def stream(device: torch.device) -> int:
     """PyTorch's current CUDA stream on `device`, as the raw handle the C
-    side takes."""
-    return torch.cuda.current_stream(device).cuda_stream
+    side takes (without building a `torch.cuda.Stream` per launch)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check(name: str, err: int) -> None:

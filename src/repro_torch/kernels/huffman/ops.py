@@ -3,9 +3,12 @@
 Source: `csrc/huffman.cu`.  No Pallas kernel computes this stage: the
 reference runs it as jitted device functions, `codeword_lengths`
 (src/repro/core/huffman.py:113), `canonical_codebook` (:184) and
-`build_decode_table` (:458).  Each kernel is one CTA, bound by the
-latency of its serial chain (the tree's merge and depth pass), not by
-bytes or operations; see the source for the design.
+`build_decode_table` (:458).  Each kernel is one CTA, bound by latency,
+not by bytes or operations: the tree by its merge's serial chain of
+picks, the codebook and the decode table by a launch and a few barriers;
+see the source for the design.  The source also sizes the workspaces:
+`rt_huffman_*_scratch_bytes` says how much global scratch a width needs
+(none where the workspace fits in shared memory).
 
 `core.huffman.codeword_lengths`, `canonical_codebook` and
 `build_decode_table` dispatch here for CUDA tensors: the stage then runs
@@ -14,6 +17,7 @@ inflate, with no read of the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,14 +32,8 @@ from . import ref
 TREE, CODEBOOK, DECODE_TABLE = (dispatch.register("huffman.tree"),
                                 dispatch.register("huffman.codebook"),
                                 dispatch.register("huffman.decode_table"))
-
-#: dynamic shared memory a kernel's workspace may take (`kMaxSmem` in the
-#: source); a larger one goes to a global scratch
-SMEM_BYTES = 226 * 1024
-
-
-def _pow2(k: int) -> int:
-    return 1 << max(k - 1, 0).bit_length()
+#: clock stamps the tree kernel writes when asked (`tree_cuda(stamps=)`)
+TREE_STAMPS = 5
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
@@ -48,48 +46,72 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
                          f"tensor, got shape {tuple(t.shape)}")
 
 
-def _scratch(nbytes: int, device: torch.device
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(kernel: str, k: int) -> int:
+    """Bytes of global scratch the kernel's workspace needs at `k` bins:
+    0 where it fits in shared memory.  The source sizes its layouts
+    (`rt_huffman_<kernel>_scratch_bytes`)."""
+    return int(getattr(_build.lib(), f"rt_huffman_{kernel}_scratch_bytes")(k))
+
+
+def _scratch(kernel: str, k: int, device: torch.device
              ) -> Tuple[Optional[torch.Tensor], int]:
     """(buffer, pointer) of a workspace too large for shared memory, else
     (None, 0): the kernel then takes it from shared memory.  The caller
     holds the buffer until the launch is queued; the allocator reuses it
     only behind the kernel, on the same stream."""
-    if nbytes <= SMEM_BYTES:
+    nbytes = _scratch_bytes(kernel, k)
+    if not nbytes:
         return None, 0
     buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
     return buf, buf.data_ptr()
 
 
-def tree_cuda(freq: torch.Tensor) -> torch.Tensor:
+def tree_cuda(freq: torch.Tensor, stamps: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Codeword lengths of the histogram `freq` by the tree kernel.
+    `stamps`, an int64 tensor of `TREE_STAMPS` entries on the same card,
+    receives the SM clock (`clock64`) at the kernel's phase boundaries:
+    start, sorted, merged, depths, scattered."""
     _check("freq", freq, torch.int32)
     k = freq.numel()
-    lengths = torch.empty(k, dtype=torch.int32, device=freq.device)
-    scratch, ptr = _scratch(8 * _pow2(k) + 20 * k, freq.device)
-    err = _build.lib().rt_huffman_tree(freq.device.index, freq.data_ptr(),
-                                       lengths.data_ptr(), ptr, k,
-                                       _build.stream(freq.device))
+    if stamps is not None:
+        _check("stamps", stamps, torch.int64)
+        if stamps.numel() != TREE_STAMPS or stamps.device != freq.device:
+            raise ValueError(f"stamps must hold {TREE_STAMPS} entries on "
+                             f"{freq.device}")
+    lengths = torch.empty_like(freq)
+    scratch, ptr = _scratch("tree", k, freq.device)
+    err = _build.lib().rt_huffman_tree(
+        freq.device.index, freq.data_ptr(), lengths.data_ptr(), ptr, k,
+        0 if stamps is None else stamps.data_ptr(),
+        _build.stream(freq.device))
     _build.check("huffman.tree", err)
     TREE.launches += 1
     return lengths
 
 
 def codebook_cuda(lengths: torch.Tensor) -> hf.Codebook:
+    """The canonical codebook of `lengths` by the codebook kernel.  The
+    kernel writes its five outputs one after another into one int32
+    buffer; the Codebook's fields are views of it, which cost the host
+    less than five allocations (the kernel takes a few microseconds, the
+    wrapper more)."""
     _check("lengths", lengths, torch.int32)
     k, dev = lengths.numel(), lengths.device
-    codes = torch.empty(k, dtype=torch.uint32, device=dev)
-    first_code = torch.empty(hf.MAXLEN + 1, dtype=torch.uint32, device=dev)
-    start_idx = torch.empty(hf.MAXLEN + 1, dtype=torch.int32, device=dev)
-    sym_canon = torch.empty(k, dtype=torch.int32, device=dev)
-    max_len = torch.empty((), dtype=torch.int32, device=dev)
-    scratch, ptr = _scratch(8 * _pow2(k), dev)
+    n = hf.MAXLEN + 1
+    out = lengths.new_empty(2 * k + 2 * n + 1)
+    scratch, ptr = _scratch("codebook", k, dev)
     err = _build.lib().rt_huffman_codebook(
-        dev.index, lengths.data_ptr(), codes.data_ptr(),
-        first_code.data_ptr(), start_idx.data_ptr(), sym_canon.data_ptr(),
-        max_len.data_ptr(), ptr, k, _build.stream(dev))
+        dev.index, lengths.data_ptr(), out.data_ptr(), ptr, k,
+        _build.stream(dev))
     _build.check("huffman.codebook", err)
     CODEBOOK.launches += 1
-    return hf.Codebook(lengths, codes, first_code, start_idx, sym_canon,
-                       max_len)
+    codes, sym_canon, first_code, start_idx, max_len = out.split_with_sizes(
+        (k, k, n, n, 1))
+    return hf.Codebook(lengths, codes.view(torch.uint32),
+                       first_code.view(torch.uint32), start_idx, sym_canon,
+                       max_len.view(()))
 
 
 def decode_table_cuda(cb: hf.Codebook

@@ -34,8 +34,9 @@ from repro_torch.kernels import dispatch
 
 KS = (2, 3, 256, 1024, 4096)
 KINDS = ("random", "sparse", "all_equal", "one", "two", "fibonacci",
-         "large", "skewed", "empty")
+         "large", "skewed", "empty", "fibonacci_deep", "ties")
 CASES = [(kind, k) for kind in KINDS for k in KS]
+BIG = (2 ** 31 - 1) // 4          # the reference's key of an unused bin
 
 
 @pytest.fixture(scope="module")
@@ -90,6 +91,12 @@ def make_hist(kind: str, k: int, seed: int) -> np.ndarray:
         f[rng.choice(k, size=m, replace=False)] = rng.integers(
             1 << 20, (1 << 28) + 1, m)
         f[rng.random(k) < 0.5] += rng.integers(0, 1000)
+    elif kind == "fibonacci_deep":            # max_len 32-43: lengths > 32
+        m = min(k, int(rng.integers(33, 45)))
+        f[rng.choice(k, size=m, replace=False)] = _fib(m)
+    elif kind == "ties":                      # a leaf equals a merged node
+        m = min(k, int(rng.integers(3, 300)))  # at many picks
+        f[rng.choice(k, size=m, replace=False)] = 1 << rng.integers(0, 8, m)
     elif kind == "skewed":                    # error-bounded codes' shape
         c = np.rint(rng.normal(k / 2, max(k / 64, 0.5), 200_000))
         f = np.bincount(np.clip(c, 0, k - 1).astype(np.int64), minlength=k)
@@ -119,8 +126,14 @@ def check_stage(ref, freq: np.ndarray) -> None:
     tl = thf.codeword_lengths(torch.from_numpy(freq))
     jl = np.asarray(ref.hf.codeword_lengths(ref.jnp.asarray(freq)))
     _eq(tl, jl, "lengths vs the reference's device loop")
-    _eq(tl, ref.hf.codeword_lengths_host(freq), "lengths vs the heap oracle")
-    _eq(tl, thf.codeword_lengths_host(freq), "lengths vs the port's oracle")
+    if freq.max(initial=0) <= BIG:
+        # the device loop keys unused bins INT_MAX / 4, so a larger
+        # frequency sorts after them (Fibonacci's 44th, 701,408,733): the
+        # heap oracles know no such key, and only the device loop holds
+        _eq(tl, ref.hf.codeword_lengths_host(freq),
+            "lengths vs the heap oracle")
+        _eq(tl, thf.codeword_lengths_host(freq),
+            "lengths vs the port's oracle")
     assert tl.device.type == "cpu" and tl.dtype == torch.int32
 
     tcb = thf.canonical_codebook(tl)
@@ -167,13 +180,42 @@ def test_fibonacci_reaches_max_len_31(ref):
         torch.from_numpy(freq))).max_len) == 31
 
 
+def _wrapping_hist() -> np.ndarray:
+    freq = np.full(16, (1 << 28) + 12345, np.int32)
+    freq[3] = 7
+    return freq
+
+
 def test_int32_sums_wrap_as_in_the_reference(ref):
     """Totals past 2^31 wrap in the reference's int32 merge; the port's
     picks follow them."""
-    freq = np.full(16, (1 << 28) + 12345, np.int32)
-    freq[3] = 7
+    freq = _wrapping_hist()
     tl = thf.codeword_lengths(torch.from_numpy(freq))
     _eq(tl, np.asarray(ref.hf.codeword_lengths(ref.jnp.asarray(freq))))
+
+
+def any_lengths(k: int, seed: int) -> np.ndarray:
+    """An int32 lengths vector of no tree: unused (<= 0), every length up
+    to 32, 33 (which the canonical order keys like an unused symbol) and
+    beyond (sorted after it by raw value), up to k - 1 as wrapping sums
+    can give."""
+    rng = np.random.default_rng(seed)
+    kind = seed % 3
+    if kind == 0:
+        return rng.integers(-3, 48, k).astype(np.int32)
+    if kind == 1:                             # around the 32 / 33 edge
+        return rng.integers(30, 37, k).astype(np.int32)
+    return rng.integers(0, max(k, 2), k).astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [1, 33, 1000, 4097])
+def test_plain_codebook_matches_reference_on_any_lengths(ref, k):
+    for seed in range(3):
+        lengths = any_lengths(k, seed)
+        tcb = thf.canonical_codebook(torch.from_numpy(lengths))
+        jcb = ref.hf.canonical_codebook(ref.jnp.asarray(lengths))
+        for f in thf.Codebook._fields:
+            _eq(getattr(tcb, f), getattr(jcb, f), f"{f} (seed {seed})")
 
 
 @pytest.mark.parametrize("fn", ["codeword_lengths", "canonical_codebook",
@@ -335,6 +377,75 @@ def test_kernels_equal_plain_on_card_random(cuda_dev, nbins):
     assert after["huffman.codebook"] - before["huffman.codebook"] == 400
     assert after["huffman.decode_table"] - before[
         "huffman.decode_table"] == 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("k", [1000, 4097])
+def test_kernels_equal_plain_on_card_odd_widths(cuda_dev, kind, k):
+    """Widths that are not powers of two, nor whole tiles of the CTA."""
+    for seed in range(4):
+        check_kernels_on_card(make_hist(kind, k, seed), cuda_dev)
+
+
+@pytest.mark.cuda
+def test_kernels_equal_plain_on_card_16384_all_active(cuda_dev):
+    """Every one of 16,384 bins active: the tree's workspace takes the
+    global scratch."""
+    from repro_torch.kernels.huffman import ops
+    assert ops._scratch_bytes("tree", 16384) > 0
+    for seed in range(3):
+        freq = np.random.default_rng(seed).integers(1, 1 << 16, 16384)
+        check_kernels_on_card(freq.astype(np.int32), cuda_dev)
+
+
+@pytest.mark.cuda
+def test_int32_sums_wrap_on_card(cuda_dev):
+    check_kernels_on_card(_wrapping_hist(), cuda_dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 33, 1000, 4097, 16384])
+def test_codebook_equals_plain_on_card_on_any_lengths(cuda_dev, k):
+    for seed in range(6):
+        lengths = torch.from_numpy(any_lengths(k, seed)).to(cuda_dev)
+        kcb = thf.canonical_codebook(lengths, impl="cuda")
+        pcb = thf.canonical_codebook(lengths, impl="torch")
+        for name, a, b in zip(thf.Codebook._fields, kcb, pcb):
+            if a.dtype == torch.uint32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (name, seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["codeword_lengths", "canonical_codebook"])
+def test_no_fallback_when_the_kernel_fails(cuda_dev, monkeypatch, fn):
+    """A refused launch or a missing library raises; the plain version
+    does not step in."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.huffman import ops
+
+    x = torch.from_numpy(_case("random", 1024)).to(cuda_dev)
+    if fn == "canonical_codebook":
+        x = thf.codeword_lengths(x, impl="torch")
+
+    class Refusing:                           # every entry point: error 1
+        def __getattr__(self, name):
+            return lambda *args: 1
+
+    def missing():
+        raise RuntimeError("nvcc not found")
+
+    ops._scratch_bytes.cache_clear()
+    try:
+        monkeypatch.setattr(_build, "lib", Refusing)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            getattr(thf, fn)(x, impl="cuda")
+        monkeypatch.setattr(_build, "lib", missing)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            getattr(thf, fn)(x, impl="cuda")
+    finally:
+        ops._scratch_bytes.cache_clear()
 
 
 @pytest.mark.cuda
