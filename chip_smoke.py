@@ -27,7 +27,10 @@ Phases, each printing one JSON line:
             chain at one shared-memory round trip per step, and
             `huffman:stage` times the stage as the pipeline calls it
             (host clock): tree + codebook, and the decode table's build
-            (codebook + decode table), kernels against plain.  Also: the share
+            (codebook + decode table), kernels against plain;
+            `huffman.tree:phases` and `huffman.decode_table:phases` give
+            each kernel's SM cycles per phase (clock stamps of one
+            launch, also at 16,384 active bins).  Also: the share
             of inflate steps that take the long-code path, inflate on a
             max_len-32 stream, lorenzo.dualquant and lorenzo.reverse on
             the same bytes as (256) and (16,16) blocks, dual-quant's
@@ -416,6 +419,16 @@ def device_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def stamp_cycles(stamps, phases, clock_mhz: float) -> dict:
+    """SM cycles per phase between a kernel's clock stamps, their total,
+    and that total in microseconds at the card's maximum SM clock."""
+    st = [int(v) for v in stamps.cpu()]
+    return {"cycles": {name: st[i + 1] - st[i]
+                       for i, name in enumerate(phases)},
+            "total_cycles": st[-1] - st[0],
+            "total_us_at_max_clock": (st[-1] - st[0]) / clock_mhz}
+
+
 def tree_phases(torch, freq, clock_mhz: float) -> dict:
     """One tree launch with its clock stamps: SM cycles per phase (sort,
     merge, depth, scatter) and per pick of the merge."""
@@ -425,14 +438,26 @@ def tree_phases(torch, freq, clock_mhz: float) -> dict:
     lengths = huff_ops.tree_cuda(freq, stamps)
     require(torch.equal(lengths, huff_ops.ref.codeword_lengths_ref(freq)),
             "huffman.tree with clock stamps differs from its plain version")
-    st = [int(v) for v in stamps.cpu()]
-    cycles = {name: st[i + 1] - st[i] for i, name in
-              enumerate(("sort", "merge", "depth", "scatter"))}
+    out = stamp_cycles(stamps, ("sort", "merge", "depth", "scatter"),
+                       clock_mhz)
     picks = 2 * max(int((freq > 0).sum()) - 1, 0)
-    return {"nbins": freq.numel(), "picks": picks, "cycles": cycles,
-            "total_cycles": st[-1] - st[0],
-            "cycles_per_pick": cycles["merge"] / max(picks, 1),
-            "total_us_at_max_clock": (st[-1] - st[0]) / clock_mhz}
+    return {"nbins": freq.numel(), "picks": picks,
+            "cycles_per_pick": out["cycles"]["merge"] / max(picks, 1), **out}
+
+
+def decode_table_phases(torch, cb, clock_mhz: float) -> dict:
+    """One decode-table launch with its clock stamps: SM cycles per phase
+    (count, bounds, LUT)."""
+    from repro_torch.kernels.huffman import ops as huff_ops
+    stamps = torch.zeros(huff_ops.DECODE_TABLE_STAMPS, dtype=torch.int64,
+                         device=cb.lengths.device)
+    parts = huff_ops.decode_table_cuda(cb, stamps)
+    want = huff_ops.ref.decode_table_ref(cb)
+    require(all(max_diff(torch, a, b) == 0.0 for a, b in zip(parts, want)),
+            "huffman.decode_table with clock stamps differs from its plain "
+            "version")
+    return {"nbins": cb.lengths.numel(), "max_len": int(cb.max_len),
+            **stamp_cycles(stamps, ("count", "bounds", "lut"), clock_mhz)}
 
 
 def huffman_stage(torch, dev, hist, record):
@@ -443,9 +468,9 @@ def huffman_stage(torch, dev, hist, record):
     decode side's build, once per new codebook).  Beside each row: its
     time on the card alone (`device_ms`), the launch floor
     (`yardstick:launch`) and the latency of its serial chain, and the
-    share of the larger of the two in its time.  The tree's clock stamps
-    on NYX's histogram and on 16,384 active bins.  Returns the codebook
-    and the decode table."""
+    share of the larger of the two in its time.  The tree's and the
+    decode table's clock stamps on NYX's histogram and on 16,384 active
+    bins.  Returns the codebook and the decode table."""
     from repro_torch.core import huffman as hf
     from repro_torch.kernels import _build
     from repro_torch.kernels.huffman import ops as huff_ops
@@ -536,6 +561,12 @@ def huffman_stage(torch, dev, hist, record):
                  lambda: huff_ops.ref.decode_table_ref(cb),
                  8 * k + 16 * (hf.MAXLEN + 1) + 4 * lut_n,
                  2 * lut_n * 2 * (hf.MAXLEN + 1), 2 * (hf.MAXLEN + 1))
+    emit({"phase": "huffman.decode_table:phases", "sm_clock_mhz": clock_mhz,
+          **decode_table_phases(torch, cb, clock_mhz)})
+    wide_cb = huff_ops.codebook_cuda(huff_ops.tree_cuda(wide))
+    emit({"phase": "huffman.decode_table:phases:16384",
+          "sm_clock_mhz": clock_mhz,
+          **decode_table_phases(torch, wide_cb, clock_mhz)})
 
     def host_ms(fn, reps=20):
         fn()

@@ -55,8 +55,28 @@
 // a second pass ranks those symbols against each other.  The first codes
 // are the 33-step u32 recurrence on one thread.
 //
-// Decode table (`decode_table_kernel`): each of the 4096 LUT entries from
-// two interval decodes of its 12-bit prefix.
+// Decode table (`decode_table_kernel`), no per-entry interval decode: the
+// decoded length of a peek, 1 + #{l : lmask[l] and peek >= thresh[l]}, is
+// monotone in the peek whatever order the thresholds are in (a lengths
+// vector of no tree leaves them unordered), so it is constant over an
+// entry's span of 2^20 peeks unless a masked threshold lies above the
+// span's lowest peek, and at the span's highest peek it is one plus the
+// number of masked thresholds in this span or an earlier one.  So each
+// masked threshold marks the entry whose span holds it (and sets that
+// entry's split bit unless it is the span's lowest peek), and the marks
+// at or before an entry give its length: no sort, no search.  Every
+// input is loaded before the first barrier; the lengths are counted with
+// a shared atomic per symbol (one per distinct length per warp by
+// `__match_any_sync` measured slower).  Then every warp forms
+// the 32 thresholds itself (lane l - 1 holds length l's), marks those
+// that fall among its own 128 entries and counts with one ballot those
+// before them, so no barrier follows the count.  A thread takes 4
+// consecutive entries (a scan of the marks over the warp): only one of
+// length <= 12 and no split gathers its symbol, by `peek_decode`'s index
+// and clamps exactly, the 4 gathers in flight together (faster than
+// staging the symbols in shared memory), and the 4 entries go out as one
+// 16-byte store.  With `stamps` set, thread 0 writes `clock64()` at the
+// start, after the count, after its warp's marks and after the LUT.
 //
 // The tree's workspace sits in shared memory up to 8,192 bins, the
 // codebook's (the long lengths' list) up to 26,880; above that the wrapper
@@ -591,64 +611,115 @@ codebook_kernel(const int* __restrict__ lengths, int* __restrict__ out,
     }
 }
 
-// (symbol, codeword length) of a 32-bit left-aligned peek by the canonical
-// length-interval compare (`huffman.peek_decode`)
-__device__ __forceinline__ void peek_decode(unsigned peek, const unsigned* th,
-                                            const int* lm, const unsigned* fc,
-                                            const int* st,
-                                            const int* __restrict__ sym_canon,
-                                            int k, int* sym, int* ln) {
-    int len = 1;
-#pragma unroll
-    for (int l = 0; l <= kMaxLen; ++l) len += (lm[l] != 0) & (peek >= th[l]);
-    const int lc = min(max(len, 1), kMaxLen);
-    const unsigned code = peek >> (32 - lc);
-    long long idx = (long long)st[lc] + (int)(code - fc[lc]);
-    idx = idx < 0 ? 0 : (idx > k - 1 ? k - 1 : idx);
-    *sym = sym_canon[idx];
-    *ln = len;
-}
-
 __global__ void __launch_bounds__(kThreads)
 decode_table_kernel(const int* __restrict__ lengths,
                     const unsigned* __restrict__ first_code,
                     const int* __restrict__ start_idx,
                     const int* __restrict__ sym_canon,
-                    const int* __restrict__ max_len,
-                    unsigned* __restrict__ thresh, int* __restrict__ lmask,
-                    int* __restrict__ lut, int k) {
+                    const int* __restrict__ max_len, int* __restrict__ out,
+                    int k, long long* stamps) {
+    // the outputs, one after another in `out`: lut [kLut], thresh (u32)
+    // and lmask [kMaxLen + 1]
+    constexpr int kLut = 1 << kLutBits;
+    static_assert(kLut == 4 * kThreads, "4 LUT entries a thread");
+    constexpr int kSpanBits = 32 - kLutBits;
+    constexpr unsigned kSpan = (1u << kSpanBits) - 1u;
+    unsigned* __restrict__ thresh = (unsigned*)(out + kLut);
+    int* __restrict__ lmask = out + kLut + kMaxLen + 1;
+    // marks[e]: masked thresholds in entry e's span of peeks; split[e / 32]
+    // bit e % 32: one of them lies above its lowest peek
+    __shared__ __align__(16) int marks[kLut];
+    __shared__ unsigned split[kLut / 32];
     __shared__ int cnt[kMaxLen + 1];
-    __shared__ unsigned th[kMaxLen + 1];
-    __shared__ int lm[kMaxLen + 1];
-    __shared__ unsigned fc[kMaxLen + 1];
-    __shared__ int st[kMaxLen + 1];
-    if (threadIdx.x <= kMaxLen) cnt[threadIdx.x] = 0;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (stamps != nullptr && tid == 0) stamps[0] = clock64();
+    // every input's first load before the first barrier; lane l - 1 of
+    // every warp holds length l's first code and start
+    const int l = lane + 1;
+    const unsigned fc = first_code[l];
+    const int st = start_idx[l];
+    const int mx = *max_len;
+    const unsigned fc0 = tid == 0 ? first_code[0] : 0u;
+    int len = tid < k ? lengths[tid] : 0;
+    ((int4*)marks)[tid] = make_int4(0, 0, 0, 0);
+    if (tid < kLut / 32) split[tid] = 0u;
+    if (tid <= kMaxLen) cnt[tid] = 0;
     __syncthreads();
-    for (int s = threadIdx.x; s < k; s += blockDim.x) {
-        const int lc = min(max(lengths[s], 0), kMaxLen);
+
+    // ---- count: clipped lengths, one shared atomic per symbol
+    for (int c = 0; c < k; c += kThreads) {
+        const int s = c + kThreads + tid;
+        const int next = s < k ? lengths[s] : 0;
+        const int lc = min(max(len, 0), kMaxLen);
         if (lc > 0) atomicAdd(&cnt[lc], 1);
+        len = next;
     }
     __syncthreads();
-    if (threadIdx.x <= kMaxLen) {
-        const int l = threadIdx.x;
-        // end of length l's left-aligned interval
-        const unsigned span = first_code[l] + (unsigned)cnt[l];
-        th[l] = span << min(max(32 - l, 0), 31);
-        lm[l] = l >= 1 && l < *max_len;
-        fc[l] = first_code[l];
-        st[l] = start_idx[l];
-        thresh[l] = th[l];
-        lmask[l] = lm[l];
+    if (stamps != nullptr && tid == 0) stamps[1] = clock64();
+
+    // ---- bounds, in every warp: lane l - 1 forms the end of length l's
+    // left-aligned interval (length 0's is never masked); a masked one
+    // whose entry is among the warp's 128 marks that entry (and sets its
+    // split bit unless it is the entry's lowest peek): a warp reads only
+    // what it wrote, so no barrier follows
+    const unsigned th = (fc + (unsigned)cnt[l]) << (31 - lane);
+    const bool masked = l < mx;
+    const unsigned p = th >> kSpanBits;
+    const int owner = (int)p / (kLut / kWarps);    // the warp of entry p
+    if (warp == 0) {
+        thresh[l] = th;
+        lmask[l] = masked;
+        if (lane == 0) {
+            thresh[0] = fc0 << 31;
+            lmask[0] = 0;
+        }
     }
-    __syncthreads();
-    constexpr int span_bits = 32 - kLutBits;
-    for (int e = threadIdx.x; e < (1 << kLutBits); e += blockDim.x) {
-        const unsigned low = (unsigned)e << span_bits;
-        const unsigned high = low | ((1u << span_bits) - 1u);
-        int sym, ln, sym_high, ln_high;
-        peek_decode(low, th, lm, fc, st, sym_canon, k, &sym, &ln);
-        peek_decode(high, th, lm, fc, st, sym_canon, k, &sym_high, &ln_high);
-        lut[e] = ln == ln_high && ln <= kLutBits ? (sym << 6) | ln : 0;
+    if (masked && owner == warp) {
+        atomicAdd(&marks[p], 1);
+        if ((th & kSpan) != 0u) atomicOr(&split[p >> 5], 1u << (p & 31));
+    }
+    const int below = __popc(__ballot_sync(kFull, masked && owner < warp));
+    __syncwarp();
+    if (stamps != nullptr && tid == 0) stamps[2] = clock64();
+
+    // ---- LUT: entry e's length at its highest peek is 1 + the marks at
+    // or before e (the masked thresholds of earlier warps' entries and a
+    // scan of the warp's own marks, 4 consecutive entries a thread); its
+    // length at the lowest peek differs where its split bit is set
+    const int4 m = ((const int4*)marks)[tid];
+    const int r0 = m.x, r1 = r0 + m.y, r2 = r1 + m.z, r3 = r2 + m.w;
+    int incl = r3;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += up;
+    }
+    const unsigned bits = split[tid >> 3] >> ((tid & 7) * 4);
+    const int base = below + incl - r3;
+    const int rank[4] = {base + r0, base + r1, base + r2, base + r3};
+    int ent[4], idx[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int ln = rank[i] + 1;
+        // `peek_decode`'s symbol index at the low peek, clamps included
+        const unsigned low = (unsigned)(4 * tid + i) << kSpanBits;
+        const unsigned code = low >> (32 - min(ln, kLutBits));
+        long long x = (long long)__shfl_sync(kFull, st, rank[i]) +
+                      (int)(code - __shfl_sync(kFull, fc, rank[i]));
+        x = x < 0 ? 0 : (x > k - 1 ? k - 1 : x);
+        idx[i] = ((bits >> i) & 1u) == 0u && ln <= kLutBits ? (int)x : -1;
+        ent[i] = ln;
+    }
+    // the gathers in flight together, then one 16-byte store
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        ent[i] = idx[i] >= 0
+                     ? (int)(((unsigned)sym_canon[idx[i]] << 6) | ent[i])
+                     : 0;
+    ((int4*)out)[tid] = make_int4(ent[0], ent[1], ent[2], ent[3]);
+    if (stamps != nullptr) {
+        __syncthreads();
+        if (tid == 0) stamps[3] = clock64();
     }
 }
 
@@ -705,15 +776,14 @@ RT_EXPORT int rt_huffman_decode_table(int device, const int* lengths,
                                       const unsigned* first_code,
                                       const int* start_idx,
                                       const int* sym_canon,
-                                      const int* max_len, unsigned* thresh,
-                                      int* lmask, int* lut, int k,
-                                      void* stream) {
+                                      const int* max_len, int* out, int k,
+                                      long long* stamps, void* stream) {
     cudaError_t err = rt_use_device(device);
     if (err != cudaSuccess) return (int)err;
     if (k > 0)
         decode_table_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-            lengths, first_code, start_idx, sym_canon, max_len, thresh,
-            lmask, lut, k);
+            lengths, first_code, start_idx, sym_canon, max_len, out, k,
+            stamps);
     return (int)cudaGetLastError();
 }
 

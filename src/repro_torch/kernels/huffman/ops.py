@@ -34,6 +34,9 @@ TREE, CODEBOOK, DECODE_TABLE = (dispatch.register("huffman.tree"),
                                 dispatch.register("huffman.decode_table"))
 #: clock stamps the tree kernel writes when asked (`tree_cuda(stamps=)`)
 TREE_STAMPS = 5
+#: clock stamps the decode-table kernel writes when asked
+#: (`decode_table_cuda(stamps=)`)
+DECODE_TABLE_STAMPS = 4
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
@@ -114,28 +117,43 @@ def codebook_cuda(lengths: torch.Tensor) -> hf.Codebook:
                        max_len.view(()))
 
 
-def decode_table_cuda(cb: hf.Codebook
+def decode_table_cuda(cb: hf.Codebook, stamps: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    k = cb.lengths.numel()
+    """(thresh, lmask, lut) of `DecodeTable` for the codebook `cb` by the
+    decode-table kernel.  The kernel writes the three one after another
+    into one int32 buffer, the LUT first so that its view keeps the
+    allocation's alignment for the inflate kernel's loads; they are views
+    of it.  `stamps`, an int64 tensor of `DECODE_TABLE_STAMPS` entries on
+    the same card, receives the SM clock (`clock64`) at the kernel's phase
+    boundaries: start, counted, bounds, LUT."""
+    lengths = cb.lengths
+    k, dev = lengths.numel(), lengths.device
     ref.check_lut_symbols(k)
-    for name, t, dt in (("lengths", cb.lengths, torch.int32),
-                        ("first_code", cb.first_code, torch.uint32),
-                        ("start_idx", cb.start_idx, torch.int32),
-                        ("sym_canon", cb.sym_canon, torch.int32),
-                        ("max_len", cb.max_len.reshape(1), torch.int32)):
-        _check(name, t, dt)
-        if t.device != cb.lengths.device:
-            raise ValueError(f"{name} is on {t.device}, the lengths on "
-                             f"{cb.lengths.device}")
-    dev = cb.lengths.device
-    thresh = torch.empty(hf.MAXLEN + 1, dtype=torch.uint32, device=dev)
-    lmask = torch.empty(hf.MAXLEN + 1, dtype=torch.int32, device=dev)
-    lut = torch.empty(1 << hf.LUT_BITS, dtype=torch.int32, device=dev)
+    if dev.type != "cuda" or lengths.dim() != 1 or not k:
+        raise ValueError("lengths must be a non-empty 1-D tensor on a CUDA "
+                         f"device, got shape {tuple(lengths.shape)} on {dev}")
+    n = hf.MAXLEN + 1
+    args = [("lengths", lengths, torch.int32, k),
+            ("first_code", cb.first_code, torch.uint32, n),
+            ("start_idx", cb.start_idx, torch.int32, n),
+            ("sym_canon", cb.sym_canon, torch.int32, k),
+            ("max_len", cb.max_len, torch.int32, 1)]
+    if stamps is not None:
+        args.append(("stamps", stamps, torch.int64, DECODE_TABLE_STAMPS))
+    for name, t, dtype, size in args:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != dev or t.numel() != size or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor of {size} "
+                             f"entries on {dev}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+    out = lengths.new_empty((1 << hf.LUT_BITS) + 2 * n)
     err = _build.lib().rt_huffman_decode_table(
-        dev.index, cb.lengths.data_ptr(), cb.first_code.data_ptr(),
+        dev.index, lengths.data_ptr(), cb.first_code.data_ptr(),
         cb.start_idx.data_ptr(), cb.sym_canon.data_ptr(),
-        cb.max_len.data_ptr(), thresh.data_ptr(), lmask.data_ptr(),
-        lut.data_ptr(), k, _build.stream(dev))
+        cb.max_len.data_ptr(), out.data_ptr(), k,
+        0 if stamps is None else stamps.data_ptr(), _build.stream(dev))
     _build.check("huffman.decode_table", err)
     DECODE_TABLE.launches += 1
-    return thresh, lmask, lut
+    lut, thresh, lmask = out.split_with_sizes((1 << hf.LUT_BITS, n, n))
+    return thresh.view(torch.uint32), lmask, lut

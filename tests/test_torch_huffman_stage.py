@@ -7,11 +7,13 @@ functions, and the last public helpers of the main path's modules
 
 On the CPU the plain versions run: bit for bit against the reference's
 jitted `codeword_lengths` and `canonical_codebook`, both heap oracles and
-the reference's decode tables, over seeded histograms of every kind; cusz
-and cusz-i containers built under ``kernel_policy("torch")`` equal the
-reference's byte for byte.  The `cuda` tests hold each kernel against its
-plain version on the card and check that the cusz path reads nothing back
-inside the stage; they skip without a card.  On the card:
+the reference's decode tables, over seeded histograms of every kind; a
+numpy model of the decode-table kernel's arithmetic equals the plain
+decode table; cusz and cusz-i containers built under
+``kernel_policy("torch")`` equal the reference's byte for byte.  The
+`cuda` tests hold each kernel against its plain version on the card and
+check that the cusz path reads nothing back inside the stage; they skip
+without a card.  On the card:
 ``python -m pytest -m cuda tests/test_torch_huffman_stage.py``.
 """
 from __future__ import annotations
@@ -218,6 +220,124 @@ def test_plain_codebook_matches_reference_on_any_lengths(ref, k):
             _eq(getattr(tcb, f), getattr(jcb, f), f"{f} (seed {seed})")
 
 
+def short_lengths(k: int, seed: int) -> np.ndarray:
+    """An int32 lengths vector with max_len <= 12, whose codewords the
+    LUT alone decodes: over-full codes, incomplete codes (a few symbols,
+    or every one at 12 bits), complete ones and a single active symbol.
+    Where the code is incomplete, `peek_decode`'s clamped index fills LUT
+    entries that start no codeword with real symbols."""
+    rng = np.random.default_rng(seed)
+    kind = seed % 5
+    if kind == 0:                             # over-full, unused included
+        return rng.integers(-1, 13, k).astype(np.int32)
+    lengths = np.zeros(k, np.int32)
+    if kind == 1:                             # incomplete: a few symbols
+        m = int(rng.integers(1, min(k, 40) + 1))
+        lengths[rng.choice(k, m, replace=False)] = rng.integers(1, 13, m)
+    elif kind == 2:                           # one active symbol
+        lengths[rng.integers(k)] = rng.integers(1, 13)
+    elif kind == 3:                           # complete: 2^b symbols of b
+        b = int(rng.integers(0, min(12, int(np.log2(k))) + 1))
+        lengths[rng.choice(k, 1 << b, replace=False)] = max(b, 1)
+    else:                                     # every symbol at 12 bits
+        lengths[:] = 12
+    return lengths
+
+
+DRAW_KS = (1, 33, 1000, 4097, 16384)
+
+
+def lut_draws():
+    """(k, seed, lengths) of the decode table's draws: lengths vectors of
+    no tree, and short ones."""
+    for k in DRAW_KS:
+        for seed in range(6):
+            yield k, seed, any_lengths(k, seed)
+            yield k, seed, short_lengths(k, seed)
+
+
+def edge_codebooks(n: int = 60, k: int = 64):
+    """Codebooks whose first codes are drawn at random (no lengths vector
+    gives them), with length 32's threshold, the only one that can end in
+    20 or 25 one bits, exactly at an entry's last peek, at the last peek
+    of 32 entries, at an entry's first peek or one above it: the edges of
+    the kernel's marks and split bits.  max_len is above 32, so every
+    threshold is masked; most entries then have a length above 12."""
+    rng = np.random.default_rng(25)
+    for i in range(n):
+        lengths = rng.integers(1, 48, k).astype(np.int32)
+        lengths[0] = 40
+        cb = thf.canonical_codebook(torch.from_numpy(lengths))
+        e = int(rng.integers(0, 1024))
+        target = ((e << 20) | 0xFFFFF, ((e - e % 32) << 20) | 0x1FFFFFF,
+                  e << 20, (e << 20) | 1)[i % 4]
+        fc = rng.integers(0, 1 << 32, thf.MAXLEN + 1, dtype=np.int64)
+        fc[thf.MAXLEN] = (target - int((lengths >= thf.MAXLEN).sum())
+                          ) & 0xFFFFFFFF
+        yield cb._replace(first_code=thf.as_u32(torch.from_numpy(fc)))
+
+
+def decode_table_model(cb) -> tuple:
+    """The decode-table kernel's arithmetic in numpy: (thresh, lmask,
+    lut).  Each masked threshold (in no particular order) marks the entry
+    whose span of peeks holds it and, above that span's lowest peek, sets
+    the entry's split bit; an entry's length is 1 + the marks at or before
+    it, and only an entry of length <= 12 with no split bit gathers a
+    symbol."""
+    m32 = 0xFFFFFFFF
+    lengths = cb.lengths.numpy().astype(np.int64)
+    fc = cb.first_code.view(torch.int32).numpy().view(np.uint32).astype(
+        np.int64)
+    st = cb.start_idx.numpy().astype(np.int64)
+    sym = cb.sym_canon.numpy().astype(np.int64)
+    k, mx = lengths.size, int(cb.max_len)
+    cnt = np.bincount(np.clip(lengths, 0, thf.MAXLEN),
+                      minlength=thf.MAXLEN + 1)
+    ell = np.arange(1, thf.MAXLEN + 1)
+    th = ((fc[1:] + cnt[1:]) & m32) << (31 - np.arange(thf.MAXLEN)) & m32
+    masked = ell < mx
+    span, n = 32 - thf.LUT_BITS, 1 << thf.LUT_BITS
+    p, inside = th >> span, (th & ((1 << span) - 1)) != 0
+    marks = np.bincount(p[masked], minlength=n)
+    split = np.zeros(n, bool)
+    split[p[masked & inside]] = True
+    ln = np.cumsum(marks) + 1
+    lc = np.minimum(ln, thf.LUT_BITS)
+    code = (np.arange(n, dtype=np.int64) << span) >> (32 - lc)
+    diff = (((code - fc[lc]) & m32) ^ (1 << 31)) - (1 << 31)
+    idx = np.clip(st[lc] + diff, 0, k - 1)
+    ok = ~split & (ln <= thf.LUT_BITS)
+    lut = np.where(ok, ((sym[idx] << 6) | ln) & m32, 0)
+    thresh = np.concatenate([[(fc[0] << 31) & m32], th])
+    lmask = np.concatenate([[0], masked]).astype(np.int32)
+    return (thresh.astype(np.uint32), lmask,
+            lut.astype(np.uint32).view(np.int32))
+
+
+def test_decode_table_model_equals_plain_on_draws():
+    """The kernel's marks, split bits and gather, modelled in numpy, equal
+    the plain decode table on lengths of no tree, short codes, the edge
+    codebooks and the seeded histograms' codebooks."""
+    from repro_torch.kernels.huffman import ref as href
+
+    def check(cb, what):
+        for name, got, want in zip(("thresh", "lmask", "lut"),
+                                   decode_table_model(cb),
+                                   href.decode_table_ref(cb)):
+            _eq(want, got, f"{name} ({what})")
+
+    def codebook(lengths):
+        return thf.canonical_codebook(torch.from_numpy(lengths))
+
+    for k, seed, lengths in lut_draws():
+        check(codebook(lengths), f"k {k}, seed {seed}")
+    for i, cb in enumerate(edge_codebooks()):
+        check(cb, f"edge codebook {i}")
+    for kind, k in CASES:
+        lengths = thf.codeword_lengths(torch.from_numpy(_case(kind, k)))
+        check(codebook(lengths.numpy()), f"{kind} {k}")
+
+
 @pytest.mark.parametrize("fn", ["codeword_lengths", "canonical_codebook",
                                 "build_decode_table", "decode_table"])
 def test_explicit_cuda_on_cpu_raises(fn):
@@ -418,20 +538,63 @@ def test_codebook_equals_plain_on_card_on_any_lengths(cuda_dev, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", ["codeword_lengths", "canonical_codebook"])
+@pytest.mark.parametrize("k", DRAW_KS)
+def test_decode_table_equals_plain_on_card_on_any_lengths(cuda_dev, k):
+    """Lengths vectors of no tree (unordered thresholds) and short ones
+    (max_len <= 12: incomplete, over-full, one active symbol), whose LUT
+    entries the clamped symbol index fills."""
+    for _, seed, lengths in (d for d in lut_draws() if d[0] == k):
+        x = torch.from_numpy(lengths).to(cuda_dev)
+        kt = thf.build_decode_table(x, impl="cuda")
+        pt = thf.build_decode_table(x, impl="torch")
+        for name, a, b in zip((*thf.Codebook._fields, "thresh", "lmask",
+                               "lut"), (*kt.cb, *kt[1:]), (*pt.cb, *pt[1:])):
+            assert a.is_cuda and a.dtype == b.dtype, name
+            assert a.shape == b.shape, name
+            if a.dtype == torch.uint32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (name, seed)
+
+
+@pytest.mark.cuda
+def test_decode_table_equals_plain_on_card_on_edge_codebooks(cuda_dev):
+    """Length 32's threshold at an entry's last peek, a warp span's last
+    peek and an entry's first peek (first codes of no lengths vector)."""
+    from repro_torch.kernels.huffman import ops
+
+    for i, cb in enumerate(edge_codebooks()):
+        cb = thf.Codebook(*(t.to(cuda_dev) for t in cb))
+        got = ops.decode_table_cuda(cb)
+        for name, a, b in zip(("thresh", "lmask", "lut"), got,
+                              ops.ref.decode_table_ref(cb)):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            if a.dtype == torch.uint32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (name, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["codeword_lengths", "canonical_codebook",
+                                "build_decode_table"])
 def test_no_fallback_when_the_kernel_fails(cuda_dev, monkeypatch, fn):
     """A refused launch or a missing library raises; the plain version
-    does not step in."""
+    does not step in.  For the decode table only its own entry point
+    refuses, so the codebook kernel before it runs."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.huffman import ops
 
     x = torch.from_numpy(_case("random", 1024)).to(cuda_dev)
-    if fn == "canonical_codebook":
+    if fn != "codeword_lengths":
         x = thf.codeword_lengths(x, impl="torch")
+    real = _build.lib()
+    only = "rt_huffman_decode_table" if fn == "build_decode_table" else None
+    refused = "huffman.decode_table" if only else "huffman"
 
-    class Refusing:                           # every entry point: error 1
-        def __getattr__(self, name):
-            return lambda *args: 1
+    class Refusing:                           # error 1 from every entry
+        def __getattr__(self, name):          # point, or from `only`
+            if only is None or name == only:
+                return lambda *args: 1
+            return getattr(real, name)
 
     def missing():
         raise RuntimeError("nvcc not found")
@@ -439,7 +602,8 @@ def test_no_fallback_when_the_kernel_fails(cuda_dev, monkeypatch, fn):
     ops._scratch_bytes.cache_clear()
     try:
         monkeypatch.setattr(_build, "lib", Refusing)
-        with pytest.raises(RuntimeError, match="failed to launch"):
+        with pytest.raises(RuntimeError, match=f"{refused}.* failed to "
+                           "launch"):
             getattr(thf, fn)(x, impl="cuda")
         monkeypatch.setattr(_build, "lib", missing)
         with pytest.raises(RuntimeError, match="nvcc not found"):
