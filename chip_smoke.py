@@ -27,10 +27,10 @@ Phases, each printing one JSON line:
             chain at one shared-memory round trip per step, and
             `huffman:stage` times the stage as the pipeline calls it
             (host clock): tree + codebook, and the decode table's build
-            (codebook + decode table), kernels against plain;
-            `huffman.tree:phases` and `huffman.decode_table:phases` give
-            each kernel's SM cycles per phase (clock stamps of one
-            launch, also at 16,384 active bins).  Also: the share
+            (codebook + decode table), kernels against plain, and
+            `huffman.tree:16384` and `huffman.decode_table:16384` hold
+            both kernels against plain at 16,384 active bins.  Also:
+            the share
             of inflate steps that take the long-code path, inflate on a
             max_len-32 stream, lorenzo.dualquant and lorenzo.reverse on
             the same bytes as (256) and (16,16) blocks, dual-quant's
@@ -419,48 +419,7 @@ def device_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def stamp_cycles(stamps, phases, clock_mhz: float) -> dict:
-    """SM cycles per phase between a kernel's clock stamps, their total,
-    and that total in microseconds at the card's maximum SM clock."""
-    st = [int(v) for v in stamps.cpu()]
-    return {"cycles": {name: st[i + 1] - st[i]
-                       for i, name in enumerate(phases)},
-            "total_cycles": st[-1] - st[0],
-            "total_us_at_max_clock": (st[-1] - st[0]) / clock_mhz}
-
-
-def tree_phases(torch, freq, clock_mhz: float) -> dict:
-    """One tree launch with its clock stamps: SM cycles per phase (sort,
-    merge, depth, scatter) and per pick of the merge."""
-    from repro_torch.kernels.huffman import ops as huff_ops
-    stamps = torch.zeros(huff_ops.TREE_STAMPS, dtype=torch.int64,
-                         device=freq.device)
-    lengths = huff_ops.tree_cuda(freq, stamps)
-    require(torch.equal(lengths, huff_ops.ref.codeword_lengths_ref(freq)),
-            "huffman.tree with clock stamps differs from its plain version")
-    out = stamp_cycles(stamps, ("sort", "merge", "depth", "scatter"),
-                       clock_mhz)
-    picks = 2 * max(int((freq > 0).sum()) - 1, 0)
-    return {"nbins": freq.numel(), "picks": picks,
-            "cycles_per_pick": out["cycles"]["merge"] / max(picks, 1), **out}
-
-
-def decode_table_phases(torch, cb, clock_mhz: float) -> dict:
-    """One decode-table launch with its clock stamps: SM cycles per phase
-    (count, bounds, LUT)."""
-    from repro_torch.kernels.huffman import ops as huff_ops
-    stamps = torch.zeros(huff_ops.DECODE_TABLE_STAMPS, dtype=torch.int64,
-                         device=cb.lengths.device)
-    parts = huff_ops.decode_table_cuda(cb, stamps)
-    want = huff_ops.ref.decode_table_ref(cb)
-    require(all(max_diff(torch, a, b) == 0.0 for a, b in zip(parts, want)),
-            "huffman.decode_table with clock stamps differs from its plain "
-            "version")
-    return {"nbins": cb.lengths.numel(), "max_len": int(cb.max_len),
-            **stamp_cycles(stamps, ("count", "bounds", "lut"), clock_mhz)}
-
-
-def huffman_stage(torch, dev, hist, record):
+def huffman_stage(torch, hist, record):
     """The three codebook kernels on NYX's histogram, each against its
     plain version (CUDA-event times; the plain tree's merge runs on a host
     copy), then the stage as the pipeline runs it, on the host clock:
@@ -468,9 +427,10 @@ def huffman_stage(torch, dev, hist, record):
     decode side's build, once per new codebook).  Beside each row: its
     time on the card alone (`device_ms`), the launch floor
     (`yardstick:launch`) and the latency of its serial chain, and the
-    share of the larger of the two in its time.  The tree's and the
-    decode table's clock stamps on NYX's histogram and on 16,384 active
-    bins.  Returns the codebook and the decode table."""
+    share of the larger of the two in its time.  The tree and the decode
+    table also on 16,384 active bins (the tree's global-workspace
+    instantiation), each against its plain version.  Returns the codebook
+    and the decode table."""
     from repro_torch.core import huffman as hf
     from repro_torch.kernels import _build
     from repro_torch.kernels.huffman import ops as huff_ops
@@ -506,32 +466,16 @@ def huffman_stage(torch, dev, hist, record):
     launch["enqueue_ms"] = enqueue_ms(floor)
     emit({"phase": "yardstick:launch", "threads": 1024, **launch})
 
-    phases = tree_phases(torch, hist, clock_mhz)
-    emit({"phase": "huffman.tree:phases", "sm_clock_mhz": clock_mhz,
-          **phases})
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    wide = torch.randint(1, 1000, (16384,), dtype=torch.int32, device=dev,
-                         generator=g)
-    emit({"phase": "huffman.tree:phases:16384", "sm_clock_mhz": clock_mhz,
-          "ms": cuda_ms(torch, lambda: huff_ops.tree_cuda(wide), 5),
-          **tree_phases(torch, wide, clock_mhz)})
-    # the tree's chain: two dependent picks per merged node, each at one
-    # shared-memory round trip, or at the measured cycles per pick where
-    # the kernel beats that
-    pick_cycles = min(SMEM_ROUND_TRIP_CYCLES, phases["cycles_per_pick"])
-
     def diff_of(a, b):
         return max(max_diff(torch, x, y) for x, y in zip(a, b))
 
-    def stage_record(name, diff, fn, plain, nbytes, ops, chain_steps,
-                     step_cycles=SMEM_ROUND_TRIP_CYCLES):
+    def stage_record(name, diff, fn, plain, nbytes, ops, chain_steps):
         ms = cuda_ms(torch, fn, 20)
-        chain_ms = chain_steps * step_cycles / (clock_mhz * 1e3)
+        chain_ms = chain_steps * SMEM_ROUND_TRIP_CYCLES / (clock_mhz * 1e3)
         floor_ms = max(chain_ms, launch["ms"])
         record(name, diff, ms, cuda_ms(torch, plain, 3), nbytes, ops,
                nbins=k, n_active=n_active, chain_steps=chain_steps,
-               chain_step_cycles=step_cycles, chain_bound_ms=chain_ms,
+               chain_step_cycles=SMEM_ROUND_TRIP_CYCLES, chain_bound_ms=chain_ms,
                launch_floor_ms=launch["ms"], floor_ms=floor_ms,
                floor_share=floor_ms / ms, device_ms=device_ms(torch, fn, 20),
                enqueue_ms=enqueue_ms(fn),
@@ -545,7 +489,9 @@ def huffman_stage(torch, dev, hist, record):
                  lambda: huff_ops.ref.codeword_lengths_ref(hist),
                  # ops: ~8 integer ops per key in each of the sort's 4
                  # passes, ~10 per pick
-                 8 * k, 32 * k + 10 * picks, picks, pick_cycles)
+                 # chain: two dependent picks per merged node, each at
+                 # one shared-memory round trip
+                 8 * k, 32 * k + 10 * picks, picks)
     cb = huff_ops.codebook_cuda(lengths)
     stage_record("huffman.codebook",
                  diff_of(cb, huff_ops.ref.canonical_codebook_ref(lengths)),
@@ -561,12 +507,32 @@ def huffman_stage(torch, dev, hist, record):
                  lambda: huff_ops.ref.decode_table_ref(cb),
                  8 * k + 16 * (hf.MAXLEN + 1) + 4 * lut_n,
                  2 * lut_n * 2 * (hf.MAXLEN + 1), 2 * (hf.MAXLEN + 1))
-    emit({"phase": "huffman.decode_table:phases", "sm_clock_mhz": clock_mhz,
-          **decode_table_phases(torch, cb, clock_mhz)})
-    wide_cb = huff_ops.codebook_cuda(huff_ops.tree_cuda(wide))
-    emit({"phase": "huffman.decode_table:phases:16384",
-          "sm_clock_mhz": clock_mhz,
-          **decode_table_phases(torch, wide_cb, clock_mhz)})
+
+    # 16,384 active bins: the tree's global-workspace instantiation (above
+    # 8,192 bins) and the decode table at that width, against the plain
+    # versions
+    g = torch.Generator(device=hist.device)
+    g.manual_seed(0)
+    wide = torch.randint(1, 1000, (16384,), dtype=torch.int32,
+                         device=hist.device, generator=g)
+    wide_lengths = huff_ops.tree_cuda(wide)
+    same = torch.equal(wide_lengths,
+                       huff_ops.ref.codeword_lengths_ref(wide))
+    emit({"phase": "huffman.tree:16384", "nbins": wide.numel(),
+          "equal": same,
+          "ms": cuda_ms(torch, lambda: huff_ops.tree_cuda(wide), 5)})
+    require(same, "huffman.tree differs from its plain version at 16,384 "
+            "bins")
+    wide_cb = huff_ops.codebook_cuda(wide_lengths)
+    diff = diff_of(huff_ops.decode_table_cuda(wide_cb),
+                   huff_ops.ref.decode_table_ref(wide_cb))
+    emit({"phase": "huffman.decode_table:16384", "nbins": wide.numel(),
+          "max_len": int(wide_cb.max_len), "equal": diff == 0.0,
+          "max_abs_err": diff,
+          "ms": cuda_ms(torch, lambda: huff_ops.decode_table_cuda(wide_cb),
+                        5)})
+    require(diff == 0.0, f"huffman.decode_table differs from its plain "
+            f"version at 16,384 bins by {diff}")
 
     def host_ms(fn, reps=20):
         fn()
@@ -621,7 +587,7 @@ def phase_huffman(torch, dev) -> None:
               "bound_ms": b, "bound_by": by, **extra})
         require(diff == 0.0, f"{name} kernel differs from its plain version "
                 f"by {diff}")
-    huffman_stage(torch, dev, nyx_histogram(torch, dev), record)
+    huffman_stage(torch, nyx_histogram(torch, dev), record)
 
 
 def phase_kernels(torch, dev) -> dict:
@@ -716,7 +682,7 @@ def phase_kernels(torch, dev) -> dict:
     # 3. the codebook stage on the card: tree, canonical codebook, decode
     # table (one CTA each), held bit for bit against the plain versions;
     # beside the contract's bound, the latency of each one's serial chain
-    cb, tbl = huffman_stage(torch, dev, hist, record)
+    cb, tbl = huffman_stage(torch, hist, record)
 
     # 4. encode: 1 gather per symbol
     cw, bw = encode_ops.encode_cuda(codes, cb)
@@ -3365,7 +3331,7 @@ def main() -> int:
     ap.add_argument("--huffman", action="store_true",
                     help="run only the Huffman codebook stage's kernels "
                          "on NYX 512^3's histogram (rows 11-13, the "
-                         "launch floor, the tree's clock stamps)")
+                         "launch floor)")
     ap.add_argument("--dryrun-cell", nargs=3, default=None,
                     metavar=("ARCH", "SHAPE", "LAYERS"),
                     help=argparse.SUPPRESS)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.compressor import to_tensor
+from repro_torch.perf.trace import spanned
 
 from .container import (Container, Header, check_container, make_header,
                         stamp_checksum, to_numpy)
@@ -214,6 +215,7 @@ def get_block_codec(name: str, *, axis: int, block: int) -> Codec:
             f"axis=/block= configuration (e.g. 'int8-block')") from None
 
 
+@spanned("codec.decode")
 def decode(c: Container, *, like=None, verify: bool = False,
            device: Optional[str] = None, **codec_kwargs) -> torch.Tensor:
     """Decode a container by its own header.  `codec_kwargs` configure the

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import compressor as CZ
 from repro_torch.core import stages
+from repro_torch.perf.trace import spanned
 
 from .base import Codec, as_tensor, input_device, register
 from .container import Container, stamp_checksum
@@ -46,6 +47,7 @@ class CuszCodec(Codec):
         return CuszCodec(cfg=cfg)
 
     # -- protocol -----------------------------------------------------------
+    @spanned("codec.encode")
     def encode(self, x, *, cfg: Optional[CZ.CompressorConfig] = None,
                device=None) -> Container:
         c = cfg if cfg is not None else self.cfg

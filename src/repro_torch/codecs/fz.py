@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import compressor as CZ
+from repro_torch.perf.trace import spanned
 
 from .base import Codec, as_tensor, input_device, register
 from .container import Container, stamp_checksum
@@ -57,6 +58,7 @@ class FzCodec(Codec):
         return CZ.StagedPipeline.from_cfg(cfg)
 
     # -- protocol -----------------------------------------------------------
+    @spanned("codec.encode")
     def encode(self, x, *, cfg: Optional[CZ.CompressorConfig] = None,
                device=None) -> Container:
         c = cfg if cfg is not None else self.cfg

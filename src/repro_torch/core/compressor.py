@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.perf.trace import span
 
 from . import dualquant as dq
 from . import stages
@@ -113,12 +114,16 @@ def resolve_eb(cfg: CompressorConfig, data: torch.Tensor) -> float:
 def staged_compress(data: torch.Tensor, cfg: CompressorConfig
                     ) -> Tuple[Dict[str, torch.Tensor], float]:
     """Returns (payload dict on data's device, resolved abs eb)."""
-    eb = resolve_eb(cfg, data)
-    pp = dispatch.pipeline_policy(data.device, cfg.kernel_impl)
-    pred = stages.get_predictor(cfg.predictor)
-    enc = stages.get_encoder(cfg.encoder)
-    codes, ppay = pred.predict(data, cfg, eb, pp)
-    return {**enc.encode(codes, cfg, pp), **ppay}, eb
+    with span("stage.resolve_eb"):
+        eb = resolve_eb(cfg, data)
+    with span("stage.predict"):
+        pp = dispatch.pipeline_policy(data.device, cfg.kernel_impl)
+        pred = stages.get_predictor(cfg.predictor)
+        enc = stages.get_encoder(cfg.encoder)
+        codes, ppay = pred.predict(data, cfg, eb, pp)
+    with span("stage.encode"):
+        epay = enc.encode(codes, cfg, pp)
+    return {**epay, **ppay}, eb
 
 
 def staged_decompress(payload: Dict[str, torch.Tensor],
@@ -128,10 +133,13 @@ def staged_decompress(payload: Dict[str, torch.Tensor],
     pred = stages.get_predictor(cfg.predictor)
     enc = stages.get_encoder(cfg.encoder)
     device = next(iter(payload.values())).device
-    static_meta, aux = enc.decode_meta(payload, cfg)
-    pp = dispatch.pipeline_policy(device, cfg.kernel_impl)
-    codes = enc.decode(payload, aux, static_meta, cfg, pp)
-    return pred.reconstruct(codes, payload, cfg, eb, tuple(shape), pp)
+    with span("stage.decode_meta"):
+        static_meta, aux = enc.decode_meta(payload, cfg)
+    with span("stage.decode"):
+        pp = dispatch.pipeline_policy(device, cfg.kernel_impl)
+        codes = enc.decode(payload, aux, static_meta, cfg, pp)
+    with span("stage.reconstruct"):
+        return pred.reconstruct(codes, payload, cfg, eb, tuple(shape), pp)
 
 
 @dataclasses.dataclass(frozen=True)

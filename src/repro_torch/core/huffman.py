@@ -32,6 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.perf.trace import span
+
 MAXLEN = 32          # hard cap on codeword bitlength (u32 stream words)
 SUBCHUNK = 128       # default gap-array subchunk (symbols per decode unit)
 # the reference's static decode-variant buckets: the sequential decoder of
@@ -100,9 +102,10 @@ def codeword_lengths(freq: torch.Tensor, impl: Optional[str] = None
     device, 0 for unused symbols.  The reference's two-queue merge over
     symbols sorted by frequency (ties in symbol order), by the
     `huffman.tree` kernel or its plain version."""
-    if dispatch.resolve(_ops.TREE.name, freq, impl) == "cuda":
-        return _ops.tree_cuda(freq)
-    return _ref.codeword_lengths_ref(freq)
+    with span(_ops.TREE.span):
+        if dispatch.resolve(_ops.TREE.name, freq, impl) == "cuda":
+            return _ops.tree_cuda(freq)
+        return _ref.codeword_lengths_ref(freq)
 
 
 # ---------------------------------------------------------------------------
@@ -129,9 +132,10 @@ def canonical_codebook(lengths: torch.Tensor, impl: Optional[str] = None
 
     Bijective, bitlength-preserving and decodable without the tree via
     (first_code, start_idx, sym_canon)."""
-    if dispatch.resolve(_ops.CODEBOOK.name, lengths, impl) == "cuda":
-        return _ops.codebook_cuda(lengths)
-    return _ref.canonical_codebook_ref(lengths)
+    with span(_ops.CODEBOOK.span):
+        if dispatch.resolve(_ops.CODEBOOK.name, lengths, impl) == "cuda":
+            return _ops.codebook_cuda(lengths)
+        return _ref.canonical_codebook_ref(lengths)
 
 
 def packed_codebook(cb: Codebook, unit_bits: int) -> torch.Tensor:
@@ -279,9 +283,10 @@ def build_decode_table(lengths: torch.Tensor, impl: Optional[str] = None
     device of `lengths` (the `huffman.codebook` and
     `huffman.decode_table` kernels, or their plain versions)."""
     cb = canonical_codebook(lengths, impl)
-    if dispatch.resolve(_ops.DECODE_TABLE.name, lengths, impl) == "cuda":
-        return DecodeTable(cb, *_ops.decode_table_cuda(cb))
-    return DecodeTable(cb, *_ref.decode_table_ref(cb))
+    with span(_ops.DECODE_TABLE.span):
+        if dispatch.resolve(_ops.DECODE_TABLE.name, lengths, impl) == "cuda":
+            return DecodeTable(cb, *_ops.decode_table_cuda(cb))
+        return DecodeTable(cb, *_ref.decode_table_ref(cb))
 
 
 # identity-keyed LRU: repeated decodes of the same stored codebook reuse

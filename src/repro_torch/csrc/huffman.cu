@@ -41,8 +41,6 @@
 //            every node points at the root, ceil(log2(depth)) + 1 rounds,
 //            then a leaf's length is its parent's depth plus one.
 //   scatter  the lengths back through the sorted order.
-// With `stamps` set, thread 0 writes `clock64()` at the start and after
-// each phase (chip_smoke.py reads them); the main path passes nullptr.
 //
 // Canonical codebook (`codebook_kernel`), no sort: a symbol's place in the
 // reference's order, (length, symbol) with unused symbols keyed 33, is
@@ -75,8 +73,7 @@
 // length <= 12 and no split gathers its symbol, by `peek_decode`'s index
 // and clamps exactly, the 4 gathers in flight together (faster than
 // staging the symbols in shared memory), and the 4 entries go out as one
-// 16-byte store.  With `stamps` set, thread 0 writes `clock64()` at the
-// start, after the count, after its warp's marks and after the LUT.
+// 16-byte store.
 //
 // The tree's workspace sits in shared memory up to 8,192 bins, the
 // codebook's (the long lengths' list) up to 26,880; above that the wrapper
@@ -286,7 +283,7 @@ __device__ void radix_pass_tile(const unsigned* kin, const int* vin,
 template <bool kSmem>
 __global__ void __launch_bounds__(kThreads)
 tree_kernel(const int* __restrict__ freq, int* __restrict__ lengths,
-            int* scratch, int k, long long* stamps) {
+            int* scratch, int k) {
     extern __shared__ __align__(16) int smem_ints[];
     __shared__ int n_active_s;
     __shared__ unsigned and_s, or_s;
@@ -295,7 +292,6 @@ tree_kernel(const int* __restrict__ freq, int* __restrict__ lengths,
     const TreeLayout L = tree_layout(k);
     const int tid = threadIdx.x, lane = tid & 31;
     if (tid == 0) {
-        if (stamps != nullptr) stamps[0] = clock64();
         n_active_s = 0;
         and_s = kFull;
         or_s = 0u;
@@ -361,7 +357,6 @@ tree_kernel(const int* __restrict__ freq, int* __restrict__ lengths,
     // intq[t] and the number of leaves it took (0, 1 or 2) in picks[t]:
     // its children are leaves i.. and merged nodes j = 2 t - i..
     if (tid == 0) {
-        if (stamps != nullptr) stamps[1] = clock64();
         const int* lf = ws + L.lf;
         int* intq = ws + L.intq;
         unsigned char* picks = (unsigned char*)(ws + L.picks);
@@ -399,7 +394,6 @@ tree_kernel(const int* __restrict__ freq, int* __restrict__ lengths,
             a0 = na0;
             a1 = na1;
         }
-        if (stamps != nullptr) stamps[2] = clock64();
     }
     __syncthreads();
 
@@ -461,7 +455,6 @@ tree_kernel(const int* __restrict__ freq, int* __restrict__ lengths,
         int* td = da; da = db; db = td;
         more = __syncthreads_or(changed);
     }
-    if (stamps != nullptr && tid == 0) stamps[3] = clock64();
 
     // ---- scatter: a leaf's length is its parent's depth plus one
     const int* par_leaf = ws + L.par_leaf;
@@ -469,10 +462,6 @@ tree_kernel(const int* __restrict__ freq, int* __restrict__ lengths,
         const int s = ws[L.sym + pos];
         const int d = pos < n && n > 1 ? da[par_leaf[pos]] + 1 : 0;
         lengths[s] = freq[s] > 0 ? (n == 1 ? 1 : d) : 0;
-    }
-    if (stamps != nullptr) {
-        __syncthreads();
-        if (tid == 0) stamps[4] = clock64();
     }
 }
 
@@ -617,7 +606,7 @@ decode_table_kernel(const int* __restrict__ lengths,
                     const int* __restrict__ start_idx,
                     const int* __restrict__ sym_canon,
                     const int* __restrict__ max_len, int* __restrict__ out,
-                    int k, long long* stamps) {
+                    int k) {
     // the outputs, one after another in `out`: lut [kLut], thresh (u32)
     // and lmask [kMaxLen + 1]
     constexpr int kLut = 1 << kLutBits;
@@ -632,7 +621,6 @@ decode_table_kernel(const int* __restrict__ lengths,
     __shared__ unsigned split[kLut / 32];
     __shared__ int cnt[kMaxLen + 1];
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    if (stamps != nullptr && tid == 0) stamps[0] = clock64();
     // every input's first load before the first barrier; lane l - 1 of
     // every warp holds length l's first code and start
     const int l = lane + 1;
@@ -655,7 +643,6 @@ decode_table_kernel(const int* __restrict__ lengths,
         len = next;
     }
     __syncthreads();
-    if (stamps != nullptr && tid == 0) stamps[1] = clock64();
 
     // ---- bounds, in every warp: lane l - 1 forms the end of length l's
     // left-aligned interval (length 0's is never masked); a masked one
@@ -680,7 +667,6 @@ decode_table_kernel(const int* __restrict__ lengths,
     }
     const int below = __popc(__ballot_sync(kFull, masked && owner < warp));
     __syncwarp();
-    if (stamps != nullptr && tid == 0) stamps[2] = clock64();
 
     // ---- LUT: entry e's length at its highest peek is 1 + the marks at
     // or before e (the masked thresholds of earlier warps' entries and a
@@ -717,10 +703,6 @@ decode_table_kernel(const int* __restrict__ lengths,
                      ? (int)(((unsigned)sym_canon[idx[i]] << 6) | ent[i])
                      : 0;
     ((int4*)out)[tid] = make_int4(ent[0], ent[1], ent[2], ent[3]);
-    if (stamps != nullptr) {
-        __syncthreads();
-        if (tid == 0) stamps[3] = clock64();
-    }
 }
 
 // The launch floor: one CTA of kThreads that meets one barrier and does
@@ -734,8 +716,7 @@ bool tree_smem_set[64], codebook_smem_set[64];
 }  // namespace
 
 RT_EXPORT int rt_huffman_tree(int device, const int* freq, int* lengths,
-                              void* scratch, int k, long long* stamps,
-                              void* stream) {
+                              void* scratch, int k, void* stream) {
     cudaError_t err = rt_use_device(device);
     if (err != cudaSuccess) return (int)err;
     const size_t bytes = tree_bytes(k);
@@ -747,10 +728,10 @@ RT_EXPORT int rt_huffman_tree(int device, const int* freq, int* lengths,
                              tree_smem_set);
         if (err != cudaSuccess) return (int)err;
         tree_kernel<true><<<1, kThreads, bytes, (cudaStream_t)stream>>>(
-            freq, lengths, nullptr, k, stamps);
+            freq, lengths, nullptr, k);
     } else {
         tree_kernel<false><<<1, kThreads, 0, (cudaStream_t)stream>>>(
-            freq, lengths, (int*)scratch, k, stamps);
+            freq, lengths, (int*)scratch, k);
     }
     return (int)cudaGetLastError();
 }
@@ -777,13 +758,12 @@ RT_EXPORT int rt_huffman_decode_table(int device, const int* lengths,
                                       const int* start_idx,
                                       const int* sym_canon,
                                       const int* max_len, int* out, int k,
-                                      long long* stamps, void* stream) {
+                                      void* stream) {
     cudaError_t err = rt_use_device(device);
     if (err != cudaSuccess) return (int)err;
     if (k > 0)
         decode_table_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-            lengths, first_code, start_idx, sym_canon, max_len, out, k,
-            stamps);
+            lengths, first_code, start_idx, sym_canon, max_len, out, k);
     return (int)cudaGetLastError();
 }
 

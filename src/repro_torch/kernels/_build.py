@@ -51,9 +51,9 @@ SIGNATURES = {
     "rt_interp_odd": [_I, _P, _P, _P, _LL, _LL, _LL, _P],
     "rt_bitshuffle_encode": [_I, _P, _P, _LL, _LL, _I, _I, _P],
     "rt_bitshuffle_decode": [_I, _P, _P, _LL, _LL, _I, _I, _P],
-    "rt_huffman_tree": [_I, _P, _P, _P, _I, _P, _P],
+    "rt_huffman_tree": [_I, _P, _P, _P, _I, _P],
     "rt_huffman_codebook": [_I, _P, _P, _P, _I, _P],
-    "rt_huffman_decode_table": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "rt_huffman_decode_table": [_I, _P, _P, _P, _P, _P, _P, _I, _P],
     "rt_huffman_tree_scratch_bytes": [_I],
     "rt_huffman_codebook_scratch_bytes": [_I],
     "rt_launch_floor": [_I, _P],

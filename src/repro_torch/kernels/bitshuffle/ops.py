@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.perf.trace import spanned
+
 from .. import _build, dispatch
 from . import ref
 from .ref import nplanes
@@ -77,6 +79,7 @@ def decode_planes_cuda(planes: torch.Tensor, nbins: int) -> torch.Tensor:
     return codes2
 
 
+@spanned(ENCODE.span)
 def encode_planes(codes2: torch.Tensor, nbins: int,
                   impl: Optional[str] = None) -> torch.Tensor:
     """Fused zigzag + bitshuffle: [nc, chunk] codes -> [nc, P, W] planes."""
@@ -86,6 +89,7 @@ def encode_planes(codes2: torch.Tensor, nbins: int,
     return ref.encode_planes_ref(codes2, nbins)
 
 
+@spanned(DECODE.span)
 def decode_planes(planes: torch.Tensor, nbins: int,
                   impl: Optional[str] = None) -> torch.Tensor:
     """Inverse bitshuffle: [nc, P, W] planes -> [nc, 32·W] codes."""

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import huffman as hf
+from repro_torch.perf.trace import spanned
 
 from .. import _build, dispatch
 from . import ref
@@ -57,6 +58,7 @@ def deflate_cuda(cw: torch.Tensor, bw: torch.Tensor, chunk_size: int,
     return words, bits, gap_bits, gap_syms
 
 
+@spanned(KERNEL.span)
 def deflate(cw: torch.Tensor, bw: torch.Tensor, chunk_size: int = 512,
             sub_size: int = hf.SUBCHUNK, impl: Optional[str] = None):
     impl = dispatch.resolve(KERNEL.name, cw, impl)

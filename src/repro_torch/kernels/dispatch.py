@@ -18,7 +18,9 @@ Every stage of the three codecs (cusz, cusz-i, fz), the Huffman codebook
 stage included, has a CUDA kernel, so there is no fallback:
 a CUDA tensor under "auto" launches the kernel or raises.  Each
 registered kernel carries a ``launches`` count that its wrapper bumps
-where it launches the kernel, and nowhere else.
+where it launches the kernel, and nowhere else.  The one function per
+kernel that resolves it and runs the kernel or its plain version runs
+inside the kernel's span (`Kernel.span`, see `repro_torch.perf.trace`).
 """
 from __future__ import annotations
 
@@ -48,6 +50,11 @@ class Kernel:
     """A registered CUDA kernel and the number of times it was launched."""
     name: str
     launches: int = 0
+
+    @property
+    def span(self) -> str:
+        """The name of the span around the kernel's dispatch."""
+        return f"dispatch.{self.name}"
 
 
 _REGISTRY: Dict[str, Kernel] = {}

@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import huffman as hf
+from repro_torch.perf.trace import spanned
 
 from .. import _build, dispatch
 from . import ref
@@ -47,6 +48,7 @@ def encode_cuda(codes: torch.Tensor, cb: hf.Codebook
     return cw, bw
 
 
+@spanned(KERNEL.span)
 def encode(codes: torch.Tensor, cb: hf.Codebook, impl: Optional[str] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flat (codewords uint32 [n], bitwidths int32 [n])."""

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.perf.trace import spanned
+
 from .. import _build, dispatch
 from . import ref
 
@@ -37,6 +39,7 @@ def histogram_cuda(codes: torch.Tensor, nbins: int) -> torch.Tensor:
     return hist
 
 
+@spanned(KERNEL.span)
 def histogram(codes: torch.Tensor, nbins: int,
               impl: Optional[str] = None) -> torch.Tensor:
     impl = dispatch.resolve(KERNEL.name, codes, impl)

@@ -32,11 +32,6 @@ from . import ref
 TREE, CODEBOOK, DECODE_TABLE = (dispatch.register("huffman.tree"),
                                 dispatch.register("huffman.codebook"),
                                 dispatch.register("huffman.decode_table"))
-#: clock stamps the tree kernel writes when asked (`tree_cuda(stamps=)`)
-TREE_STAMPS = 5
-#: clock stamps the decode-table kernel writes when asked
-#: (`decode_table_cuda(stamps=)`)
-DECODE_TABLE_STAMPS = 4
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
@@ -70,24 +65,14 @@ def _scratch(kernel: str, k: int, device: torch.device
     return buf, buf.data_ptr()
 
 
-def tree_cuda(freq: torch.Tensor, stamps: Optional[torch.Tensor] = None
-              ) -> torch.Tensor:
-    """Codeword lengths of the histogram `freq` by the tree kernel.
-    `stamps`, an int64 tensor of `TREE_STAMPS` entries on the same card,
-    receives the SM clock (`clock64`) at the kernel's phase boundaries:
-    start, sorted, merged, depths, scattered."""
+def tree_cuda(freq: torch.Tensor) -> torch.Tensor:
+    """Codeword lengths of the histogram `freq` by the tree kernel."""
     _check("freq", freq, torch.int32)
     k = freq.numel()
-    if stamps is not None:
-        _check("stamps", stamps, torch.int64)
-        if stamps.numel() != TREE_STAMPS or stamps.device != freq.device:
-            raise ValueError(f"stamps must hold {TREE_STAMPS} entries on "
-                             f"{freq.device}")
     lengths = torch.empty_like(freq)
     scratch, ptr = _scratch("tree", k, freq.device)
     err = _build.lib().rt_huffman_tree(
         freq.device.index, freq.data_ptr(), lengths.data_ptr(), ptr, k,
-        0 if stamps is None else stamps.data_ptr(),
         _build.stream(freq.device))
     _build.check("huffman.tree", err)
     TREE.launches += 1
@@ -117,15 +102,13 @@ def codebook_cuda(lengths: torch.Tensor) -> hf.Codebook:
                        max_len.view(()))
 
 
-def decode_table_cuda(cb: hf.Codebook, stamps: Optional[torch.Tensor] = None
+def decode_table_cuda(cb: hf.Codebook
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(thresh, lmask, lut) of `DecodeTable` for the codebook `cb` by the
     decode-table kernel.  The kernel writes the three one after another
     into one int32 buffer, the LUT first so that its view keeps the
     allocation's alignment for the inflate kernel's loads; they are views
-    of it.  `stamps`, an int64 tensor of `DECODE_TABLE_STAMPS` entries on
-    the same card, receives the SM clock (`clock64`) at the kernel's phase
-    boundaries: start, counted, bounds, LUT."""
+    of it."""
     lengths = cb.lengths
     k, dev = lengths.numel(), lengths.device
     ref.check_lut_symbols(k)
@@ -138,8 +121,6 @@ def decode_table_cuda(cb: hf.Codebook, stamps: Optional[torch.Tensor] = None
             ("start_idx", cb.start_idx, torch.int32, n),
             ("sym_canon", cb.sym_canon, torch.int32, k),
             ("max_len", cb.max_len, torch.int32, 1)]
-    if stamps is not None:
-        args.append(("stamps", stamps, torch.int64, DECODE_TABLE_STAMPS))
     for name, t, dtype, size in args:
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -151,8 +132,7 @@ def decode_table_cuda(cb: hf.Codebook, stamps: Optional[torch.Tensor] = None
     err = _build.lib().rt_huffman_decode_table(
         dev.index, lengths.data_ptr(), cb.first_code.data_ptr(),
         cb.start_idx.data_ptr(), cb.sym_canon.data_ptr(),
-        cb.max_len.data_ptr(), out.data_ptr(), k,
-        0 if stamps is None else stamps.data_ptr(), _build.stream(dev))
+        cb.max_len.data_ptr(), out.data_ptr(), k, _build.stream(dev))
     _build.check("huffman.decode_table", err)
     DECODE_TABLE.launches += 1
     lut, thresh, lmask = out.split_with_sizes((1 << hf.LUT_BITS, n, n))

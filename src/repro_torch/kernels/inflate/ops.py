@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import huffman as hf
+from repro_torch.perf.trace import spanned
 
 from .. import _build, dispatch
 from . import ref
@@ -71,6 +72,7 @@ def inflate_cuda(words: torch.Tensor, n_valid: torch.Tensor,
     return out
 
 
+@spanned(KERNEL.span)
 def inflate(words: torch.Tensor, n_valid: torch.Tensor,
             table: hf.DecodeTable, gaps: Optional[torch.Tensor] = None,
             sub_size: Optional[int] = None,

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.perf.trace import spanned
+
 from .. import _build, dispatch
 from . import ref
 
@@ -59,6 +61,7 @@ def odd_rows_cuda(pe: torch.Tensor, resid: torch.Tensor) -> torch.Tensor:
     return _launch("rt_interp_odd", RECONSTRUCT, pe, resid)
 
 
+@spanned(PREDICT.span)
 def residual_rows(pe: torch.Tensor, odd: torch.Tensor,
                   impl: Optional[str] = None) -> torch.Tensor:
     """Encode direction of one interpolation level: residual = odd −
@@ -70,6 +73,7 @@ def residual_rows(pe: torch.Tensor, odd: torch.Tensor,
     return ref.residual_rows_ref(pe, odd)
 
 
+@spanned(RECONSTRUCT.span)
 def odd_rows(pe: torch.Tensor, resid: torch.Tensor,
              impl: Optional[str] = None) -> torch.Tensor:
     """Decode direction: odd = residual + p(even)."""

@@ -22,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.perf.trace import spanned
+
 from .. import _build, dispatch
 from . import ref
 
@@ -89,6 +91,7 @@ def reverse_blocks_cuda(delta: torch.Tensor, eb: float) -> torch.Tensor:
     return out
 
 
+@spanned(DUALQUANT.span)
 def dualquant_blocks(xb: torch.Tensor, eb: float, nbins: int,
                      impl: Optional[str] = None):
     """Fused PREQUANT + ℓ-delta + POSTQUANT on blocked input.
@@ -99,6 +102,7 @@ def dualquant_blocks(xb: torch.Tensor, eb: float, nbins: int,
     return ref.dualquant_blocks_ref(xb, eb, nbins)
 
 
+@spanned(REVERSE.span)
 def reverse_blocks(delta: torch.Tensor, eb: float,
                    impl: Optional[str] = None) -> torch.Tensor:
     """Per-block cumsum inverse + dequant.  Returns blocked float32."""
