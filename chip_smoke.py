@@ -32,9 +32,13 @@ Phases, each printing one JSON line:
             both kernels against plain at 16,384 active bins.  Also:
             the share
             of inflate steps that take the long-code path, inflate on a
-            max_len-32 stream, lorenzo.dualquant and lorenzo.reverse on
+            max_len-32 stream, lorenzo.dualquant through its field
+            entry (the unpadded field read in place) beside its blocked
+            entry, on NYX and on a HACC-size 1-D field (`--dualquant`
+            runs only that row), lorenzo.dualquant and lorenzo.reverse on
             the same bytes as (256) and (16,16) blocks, dual-quant's
-            generic kernel and bitshuffle.encode on unaligned copies,
+            generic kernel on the TPU block (8,16,128), its scalar loads
+            and bitshuffle.encode on unaligned copies,
             bitshuffle.encode and .decode at chunk 32 (W = 1) and at
             P = 16 (nbins 65536), and the interpolation kernels,
             untimed, on HACC's first level (one row of 140,476,933
@@ -258,6 +262,9 @@ SPIN_CYCLES = 8_000_000
 # phases
 QWEN3_4B = dict(n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8,
                 d_ff=9728, vocab=151936, head_dim=128)
+# HACC's values per field (cuSZ paper, Table 2): 1,097,476 blocks of 256
+# and 11 more, so the 1-D Lorenzo path pads 245 values at its edge
+HACC_N = 280_953_867
 # the KV handoff: one 32k-token sequence in 256 wire slabs (the default
 # slab of 128 tokens)
 KV_SEQ, KV_SLABS = 32768, 256
@@ -564,7 +571,6 @@ def nyx_histogram(torch, dev):
     """The histogram of NYX 512^3's dual-quant codes (kernels 1 and 3),
     as the main path and `phase_kernels` make it."""
     from repro_torch.core import compressor as CZ
-    from repro_torch.core import dualquant as dq
     from repro_torch.data import scidata
     from repro_torch.kernels.histogram import ops as hist_ops
     from repro_torch.kernels.lorenzo import ops as lorenzo_ops
@@ -572,10 +578,134 @@ def nyx_histogram(torch, dev):
     cfg = CZ.CompressorConfig(eb=1e-4, eb_mode="valrel")
     x = scidata.nyx_like((512, 512, 512), seed=3, device=dev)
     eb = CZ.resolve_eb(cfg, x)
-    block = cfg.block_for(3)
-    xb = dq.block_split(dq.pad_to_blocks(x, block), block)
-    codes, _ = lorenzo_ops.dualquant_blocks_cuda(xb, eb, cfg.nbins)
+    codes, _ = lorenzo_ops.dualquant_field_cuda(x, cfg.block_for(3), eb,
+                                                cfg.nbins)
     return hist_ops.histogram_cuda(codes, cfg.nbins)
+
+
+def dualquant_rows(torch, dev, x, eb, cfg, record):
+    """Row 1, `lorenzo.dualquant`, each call held bit for bit against the
+    plain pad + block split + dual-quant: the field entry on the unpadded
+    field `x` (the main path's call, no copy of the field), beside the
+    blocked entry on its blocked copy and on (256) and (16,16) views of
+    the same bytes, on an unaligned copy (scalar loads), and the TPU
+    block (8,16,128) (the generic kernel); then the 1-D field entry on a
+    HACC-size field, whose last block takes the clamped edge.  Returns
+    the field entry's (codes, delta) of `x`."""
+    from repro_torch.core import dualquant as dq
+    from repro_torch.kernels.lorenzo import ops as lorenzo_ops
+    from repro_torch.kernels.lorenzo import ref as lorenzo_ref
+
+    nbins, block = cfg.nbins, cfg.block_for(x.ndim)
+
+    def plain(v, blk=None):
+        if blk is not None:
+            v = dq.block_split(dq.pad_to_blocks(v, blk), blk)
+        return lorenzo_ref.dualquant_blocks_ref(v, eb, nbins)
+
+    def check(got, want):
+        torch.cuda.synchronize()
+        return max(max_diff(torch, g, w) for g, w in zip(got, want))
+
+    def field(v, blk):
+        return lorenzo_ops.dualquant_field_cuda(v, blk, eb, nbins)
+
+    def blocked(v):
+        return lorenzo_ops.dualquant_blocks_cuda(v, eb, nbins)
+
+    # ~20 scalar ops per value (multiply, round, the 8-term stencil, the
+    # cap test); 4 B read and 8 B written per value of the padded grid
+    copies = lorenzo_ops.DUALQUANT.host_copies
+    codes, delta = field(x, block)
+    require(lorenzo_ops.DUALQUANT.host_copies == copies,
+            "lorenzo.dualquant's field entry made a host copy")
+    xb = dq.block_split(dq.pad_to_blocks(x, block), block)
+    n = xb.numel()
+    diff = check((codes, delta), plain(xb))
+    blocked_diff = check(blocked(xb), plain(xb))
+    buf = torch.empty(n + 4, dtype=torch.float32, device=dev)
+    xu = buf[1:n + 1].view(xb.shape)
+    xu.copy_(xb)
+    unaligned_diff = check(blocked(xu), plain(xu))
+    unaligned_ms = cuda_ms(torch, lambda: blocked(xu), 10)
+    del buf, xu
+    tpu = (8, 16, 128)
+    generic_diff = check(field(x, tpu), plain(x, tpu))
+    generic_ms = cuda_ms(torch, lambda: field(x, tpu), 10)
+    for what, d in (("blocked entry", blocked_diff),
+                    ("unaligned copy", unaligned_diff),
+                    ("generic kernel (8,16,128)", generic_diff)):
+        require(d == 0.0, f"lorenzo.dualquant's {what} differs from its "
+                f"plain version by {d}")
+    record("lorenzo.dualquant", diff,
+           cuda_ms(torch, lambda: field(x, block), 10),
+           cuda_ms(torch, lambda: plain(x, block), 3),
+           12 * n, 20 * n, block=list(block), eb=eb, entry="field",
+           blocked_ms=cuda_ms(torch, lambda: blocked(xb), 10),
+           blocked_max_abs_err=blocked_diff,
+           unaligned_ms=unaligned_ms, unaligned_max_abs_err=unaligned_diff,
+           generic_ms=generic_ms, generic_block=list(tpu),
+           generic_max_abs_err=generic_diff)
+    for view in ((-1, 256), (-1, 1, 16, 16)):
+        v = xb.view(view)
+        diff = check(blocked(v), plain(v))
+        b, by = bound_ms(12 * n, 20 * n)
+        name = "x".join(str(d) for d in view[-2:] if d > 1)
+        emit({"phase": f"kernel:lorenzo.dualquant:{name}", "n": n,
+              "block": [d for d in view[1:] if d > 1], "equal": diff == 0.0,
+              "max_abs_err": diff, "ms": cuda_ms(torch, lambda: blocked(v),
+                                                 10),
+              "plain_ms": cuda_ms(torch, lambda: plain(v), 3),
+              "bound_ms": b, "bound_by": by})
+        require(diff == 0.0, f"lorenzo.dualquant ({name}) differs from its "
+                f"plain version by {diff}")
+    del xb, v
+
+    # a HACC-size field (`HACC_N`): a random walk drawn on the card
+    nh = HACC_N
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = torch.cumsum(torch.randn(nh, device=dev, generator=gen), 0)
+    h1 = (256,)
+    copies = lorenzo_ops.DUALQUANT.host_copies
+    diff = check(field(h, h1), plain(h, h1))
+    require(lorenzo_ops.DUALQUANT.host_copies == copies,
+            "lorenzo.dualquant's field entry made a host copy")
+    hb = dq.block_split(dq.pad_to_blocks(h, h1), h1)
+    nh_padded = hb.numel()
+    b, by = bound_ms(12 * nh_padded, 20 * nh_padded)
+    emit({"phase": "kernel:lorenzo.dualquant:hacc", "n": nh,
+          "n_padded": nh_padded, "block": list(h1), "entry": "field",
+          "equal": diff == 0.0, "max_abs_err": diff,
+          "ms": cuda_ms(torch, lambda: field(h, h1), 10),
+          "blocked_ms": cuda_ms(torch, lambda: blocked(hb), 10),
+          "pad_and_split_ms": cuda_ms(
+              torch, lambda: dq.block_split(dq.pad_to_blocks(h, h1), h1), 3),
+          "plain_ms": cuda_ms(torch, lambda: plain(h, h1), 3),
+          "bound_ms": b, "bound_by": by})
+    require(diff == 0.0, "lorenzo.dualquant's field entry differs from its "
+            f"plain version on the HACC-size field by {diff}")
+    del h, hb
+    torch.cuda.empty_cache()
+    return codes, delta
+
+
+def phase_dualquant(torch, dev) -> None:
+    """`--dualquant`: row 1 alone (`dualquant_rows`) on NYX 512^3."""
+    from repro_torch.core import compressor as CZ
+    from repro_torch.data import scidata
+
+    cfg = CZ.CompressorConfig(eb=1e-4, eb_mode="valrel")
+    x = scidata.nyx_like((512, 512, 512), seed=3, device=dev)
+    eb = CZ.resolve_eb(cfg, x)
+
+    def record(name, diff, ms, plain_ms, nbytes, ops, **extra):
+        b, by = bound_ms(nbytes, ops)
+        emit({"phase": f"kernel:{name}", "n": x.numel(),
+              "equal": diff == 0.0, "max_abs_err": diff, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, **extra})
+        require(diff == 0.0, f"{name} kernel differs from its plain version "
+                f"by {diff}")
+    dualquant_rows(torch, dev, x, eb, cfg, record)
 
 
 def phase_huffman(torch, dev) -> None:
@@ -606,9 +736,7 @@ def phase_kernels(torch, dev) -> dict:
     x = scidata.nyx_like((512, 512, 512), seed=3, device=dev)
     eb = CZ.resolve_eb(cfg, x)
     block = cfg.block_for(3)
-    xb = dq.block_split(dq.pad_to_blocks(x, block), block)
-    del x
-    n, nbins = xb.numel(), cfg.nbins
+    n, nbins = x.numel(), cfg.nbins
     out = {}
 
     def record(name, diff, ms, plain_ms, nbytes, ops, library_ms=None,
@@ -623,50 +751,10 @@ def phase_kernels(torch, dev) -> dict:
         require(diff == 0.0, f"{name} kernel differs from its plain version "
                 f"by {diff}")
 
-    # 1. fused dual-quant: ~20 scalar ops per value (multiply, round, the
-    # 8-term stencil, the cap test); then the same bytes as (256) and
-    # (16,16) blocks, and the generic kernel (the one every block took
-    # before the warp-per-block kernels) on an unaligned copy
-    def dualquant_check(v):
-        kc, kd = lorenzo_ops.dualquant_blocks_cuda(v, eb, nbins)
-        pc, pd = lorenzo_ref.dualquant_blocks_ref(v, eb, nbins)
-        torch.cuda.synchronize()
-        return max(max_diff(torch, kc, pc), max_diff(torch, kd, pd))
-
-    diff = dualquant_check(xb)
-    codes, delta = lorenzo_ops.dualquant_blocks_cuda(xb, eb, nbins)
-    buf = torch.empty(n + 4, dtype=torch.float32, device=dev)
-    xu = buf[1:n + 1].view(xb.shape)
-    xu.copy_(xb)
-    generic_diff = dualquant_check(xu)
-    generic_ms = cuda_ms(torch, lambda: lorenzo_ops.dualquant_blocks_cuda(
-        xu, eb, nbins), 10)
-    del buf, xu
-    require(generic_diff == 0.0, "lorenzo.dualquant's generic kernel "
-            f"differs from its plain version by {generic_diff}")
-    record("lorenzo.dualquant", diff,
-           cuda_ms(torch, lambda: lorenzo_ops.dualquant_blocks_cuda(
-               xb, eb, nbins), 10),
-           cuda_ms(torch, lambda: lorenzo_ref.dualquant_blocks_ref(
-               xb, eb, nbins), 3),
-           12 * n, 20 * n, block=list(block), eb=eb,
-           generic_ms=generic_ms, generic_max_abs_err=generic_diff)
-    for view in ((-1, 256), (-1, 1, 16, 16)):
-        v = xb.view(view)
-        diff = dualquant_check(v)
-        b, by = bound_ms(12 * n, 20 * n)
-        ms = cuda_ms(torch, lambda: lorenzo_ops.dualquant_blocks_cuda(
-            v, eb, nbins), 10)
-        plain = cuda_ms(torch, lambda: lorenzo_ref.dualquant_blocks_ref(
-            v, eb, nbins), 3)
-        name = "x".join(str(d) for d in view[-2:] if d > 1)
-        emit({"phase": f"kernel:lorenzo.dualquant:{name}", "n": n,
-              "block": [d for d in view[1:] if d > 1], "equal": diff == 0.0,
-              "max_abs_err": diff, "ms": ms, "plain_ms": plain,
-              "bound_ms": b, "bound_by": by})
-        require(diff == 0.0, f"lorenzo.dualquant ({name}) differs from its "
-                f"plain version by {diff}")
-    del xb, v
+    # 1. fused dual-quant, as the main path calls it (the field in place),
+    # beside the blocked entry and its other paths
+    codes, delta = dualquant_rows(torch, dev, x, eb, cfg, record)
+    del x
 
     # 2. histogram: 1 increment per code
     flat = codes.reshape(-1)
@@ -804,10 +892,9 @@ def phase_kernels(torch, dev) -> dict:
     # decode; the encode also on an unaligned copy of the codes (its bulk
     # copy then moves the 16 B-aligned window around each tile); both also
     # at chunk 32 (W = 1) and at P = 16 (the codes of nbins 65536)
-    xb = dq.block_split(x, block)
-    codes, _ = lorenzo_ops.dualquant_blocks_cuda(xb, eb, nbins)
-    codes16, _ = lorenzo_ops.dualquant_blocks_cuda(xb, eb, 65536)
-    del x, xb
+    codes, _ = lorenzo_ops.dualquant_field_cuda(x, block, eb, nbins)
+    codes16, _ = lorenzo_ops.dualquant_field_cuda(x, block, eb, 65536)
+    del x
     codes2 = codes.reshape(-1, 512)
     del codes
     p_count = bits_ops.nplanes(nbins)
@@ -965,7 +1052,7 @@ def main_fields(torch, dev):
     """The paper's Table 2 sizes, one field per block rank."""
     from repro_torch.data import scidata
     yield "hacc", lambda: torch.from_numpy(
-        scidata.hacc_like(n=280_953_867, seed=0)).to(dev)
+        scidata.hacc_like(n=HACC_N, seed=0)).to(dev)
     yield "cesm", lambda: scidata.cesm_like((1800, 3600), seed=1, device=dev)
     yield "nyx", lambda: scidata.nyx_like((512, 512, 512), seed=3,
                                           device=dev)
@@ -3332,6 +3419,10 @@ def main() -> int:
                     help="run only the Huffman codebook stage's kernels "
                          "on NYX 512^3's histogram (rows 11-13, the "
                          "launch floor)")
+    ap.add_argument("--dualquant", action="store_true",
+                    help="run only the dual-quant kernel's row (row 1): "
+                         "the field entry on NYX 512^3 and a HACC-size "
+                         "1-D field, beside the blocked entry")
     ap.add_argument("--dryrun-cell", nargs=3, default=None,
                     metavar=("ARCH", "SHAPE", "LAYERS"),
                     help=argparse.SUPPRESS)
@@ -3353,6 +3444,9 @@ def main() -> int:
     timed("build", phase_build)
     if args.huffman:
         timed("huffman", phase_huffman, torch, dev)
+        return 0
+    if args.dualquant:
+        timed("dualquant", phase_dualquant, torch, dev)
         return 0
     kernels = timed("kernels", phase_kernels, torch, dev)
     timed("golden", phase_golden, torch)

@@ -237,10 +237,11 @@ class LorenzoPredictor(Predictor):
 
     def predict(self, data, cfg, eb, pp):
         ndim, block, pshape, n, cap = shape_meta(tuple(data.shape), cfg)
-        xb = dq.block_split(dq.pad_to_blocks(data, block), block)
-        # fused PREQUANT + ℓ-delta + POSTQUANT: one blocked kernel call
-        codes, delta = lorenzo_ops.dualquant_blocks(
-            xb, eb, cfg.nbins, impl=pp.for_kernel("lorenzo.dualquant"))
+        # fused edge pad + block split + PREQUANT + ℓ-delta + POSTQUANT:
+        # one kernel call that reads the field in place
+        codes, delta = lorenzo_ops.dualquant_field(
+            data, block, eb, cfg.nbins,
+            impl=pp.for_kernel("lorenzo.dualquant"))
         # code 0 <=> outlier (in-cap codes are >= 1)
         oidx, oval, n_out = dq.extract_outliers(
             delta.reshape(-1), (codes != 0).reshape(-1), cap)

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 # pointers and the stream as c_void_p, so ctypes never cuts a 64-bit
 # address to a 32-bit int
 SIGNATURES = {
-    "rt_dualquant": [_I, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _I, _P],
+    "rt_dualquant": [_I, _P, _P, _P, _I, _P, _P, _F, _I, _P],
     "rt_reverse": [_I, _P, _P, _LL, _I, _I, _I, _I, _F, _P],
     "rt_histogram": [_I, _P, _P, _LL, _I, _P],
     "rt_encode": [_I, _P, _P, _P, _P, _P, _LL, _I, _P],

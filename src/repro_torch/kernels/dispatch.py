@@ -18,9 +18,13 @@ Every stage of the three codecs (cusz, cusz-i, fz), the Huffman codebook
 stage included, has a CUDA kernel, so there is no fallback:
 a CUDA tensor under "auto" launches the kernel or raises.  Each
 registered kernel carries a ``launches`` count that its wrapper bumps
-where it launches the kernel, and nowhere else.  The one function per
-kernel that resolves it and runs the kernel or its plain version runs
-inside the kernel's span (`Kernel.span`, see `repro_torch.perf.trace`).
+where it launches the kernel, and nowhere else, and a ``host_copies``
+count of the calls on which its ops layer copied the input into the
+kernel's layout in torch first (the plain dual-quant's edge pad and
+block split; the kernels read their input in place).  The function that
+resolves a kernel and runs it or its plain version (one per kernel;
+dual-quant has a field and a blocked entry) runs inside the kernel's
+span (`Kernel.span`, see `repro_torch.perf.trace`).
 """
 from __future__ import annotations
 
@@ -47,9 +51,11 @@ def _validate(impl: str) -> str:
 
 @dataclasses.dataclass
 class Kernel:
-    """A registered CUDA kernel and the number of times it was launched."""
+    """A registered CUDA kernel, the number of times it was launched, and
+    the calls on which its input was copied into its layout first."""
     name: str
     launches: int = 0
+    host_copies: int = 0
 
     @property
     def span(self) -> str:
@@ -73,8 +79,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launches() -> None:
+    """Zero every kernel's ``launches`` and ``host_copies``."""
     for k in _REGISTRY.values():
         k.launches = 0
+        k.host_copies = 0
 
 
 # ---------------------------------------------------------------------------

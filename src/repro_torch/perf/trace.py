@@ -26,11 +26,11 @@ Spans are named ``<layer>.<what>``:
                        and the decode table (cached, or built)
   stage.decode         the dispatch policy and the decoder
   stage.reconstruct    the predictor's inverse
-  dispatch.<kernel>    kernel dispatch + ops: the one function per
-                       registered kernel (`dispatch.PIPELINE_STAGES`) that
-                       resolves it and runs the CUDA kernel's wrapper or
-                       the plain version: its checks, allocations and
-                       launch
+  dispatch.<kernel>    kernel dispatch + ops: the function that resolves
+                       a registered kernel (`dispatch.PIPELINE_STAGES`;
+                       one per kernel, two entries for dual-quant) and
+                       runs the CUDA kernel's wrapper or the plain
+                       version: its checks, allocations and launch
 
 So the number of `dispatch.huffman.decode_table` spans in a trace is the
 number of decode tables built; launches stay counted in

@@ -151,6 +151,168 @@ class TestLorenzo:
         _eq(t_lorenzo.reverse_blocks(td, 1e-3).numpy(), jr, "reverse")
 
 
+# (field shape, block): the field entry `dualquant_field` against the
+# reference's pad + block split + dual-quant.  1-D ragged tails (HACC's
+# remainder of 75 last), 2-D with a ragged first axis (CESM-like) and
+# both axes ragged, 3-D with one, two and three ragged axes and an
+# interior 64^3, 4-D under (1,8,8,8), and the TPU blocks
+FIELD_CASES = [
+    ((256 * 21 + 3,), (256,)), ((1,), (256,)), ((255,), (256,)),
+    ((257,), (256,)), ((256 * 4096 + 75,), (256,)),
+    ((40, 3600), (16, 16)), ((50, 37), (16, 16)),
+    ((16, 24, 19), (8, 8, 8)), ((17, 24, 19), (8, 8, 8)),
+    ((9, 17, 20), (8, 8, 8)), ((64, 64, 64), (8, 8, 8)),
+    ((2, 17, 17, 9), (1, 8, 8, 8)),
+    ((9000,), (4096,)), ((70, 130), (64, 128)), ((9, 20, 130), (8, 16, 128)),
+]
+
+# the field as a view: "offset" starts one value (4 B) into its storage,
+# "transposed" has a last axis that is not unit-stride
+FIELD_VIEWS = [((256 * 21 + 3,), (256,), "offset"),
+               ((40, 3600), (16, 16), "offset"),
+               ((9, 17, 20), (8, 8, 8), "offset"),
+               ((64, 64, 64), (8, 8, 8), "offset"),
+               ((37, 50), (16, 16), "transposed"),
+               ((16, 24, 19), (8, 8, 8), "transposed")]
+
+
+def _field_view(shape, layout, seed=6, device="cpu"):
+    """A float32 field of `shape` laid out as `layout` ("contiguous",
+    "offset" or "transposed"), and its values as a numpy array."""
+    x = _field(shape, seed, 10.0)
+    n = x.size
+    if layout == "offset":
+        flat = torch.zeros(n + 1, dtype=torch.float32, device=device)
+        flat[1:] = torch.from_numpy(x.reshape(-1)).to(device)
+        t = flat[1:].view(shape)
+    elif layout == "transposed":
+        t = torch.from_numpy(np.ascontiguousarray(x.swapaxes(-1, -2))
+                             ).to(device).transpose(-1, -2)
+    else:
+        t = torch.from_numpy(x).to(device)
+    return t, x
+
+
+def _addressed(x, block):
+    """What the dual-quant kernels read for `dualquant_field(x, block)`,
+    worked out from the kernel layout the wrapper hands them (grid
+    coordinates times steps, in-block coordinates clamped per axis):
+    a blocked [nb..., b...] tensor."""
+    block = tuple(block)
+    axes = t_lorenzo.field_axes(x.shape, x.stride(), block)
+    grid, inner = t_lorenzo.kernel_layout(axes, block)
+    nblocks = int(np.prod([nb for nb, _ in grid]))
+    total = int(np.prod([a[0] for a in inner]))
+    r = torch.arange(nblocks, dtype=torch.int64)
+    base = torch.zeros(nblocks, dtype=torch.int64)
+    last = [torch.full((nblocks,), a[0] - 1, dtype=torch.int64)
+            for a in inner]
+    for g in reversed(range(len(grid))):
+        nb, step = grid[g]
+        c = r % nb
+        r = r // nb
+        base += c * step
+        for a, (size, axis, _, extent) in enumerate(inner):
+            if axis == g:
+                last[a] = torch.minimum(last[a], extent - 1 - c * size)
+    i = torch.arange(total, dtype=torch.int64)
+    at = base[:, None].expand(nblocks, total).clone()
+    inner_stride = total
+    for a, (size, _, stride, _) in enumerate(inner):
+        inner_stride //= size
+        coord = (i // inner_stride) % size
+        at += torch.minimum(coord[None, :], last[a][:, None]) * stride
+    storage = torch.as_strided(x, (x.untyped_storage().nbytes() // 4,),
+                               (1,), 0)
+    nb = tuple(a[0] for a in axes)
+    return storage[x.storage_offset() + at].reshape(nb + block)
+
+
+class TestLorenzoField:
+    """`dualquant_field`: the plain path against the reference, and the
+    kernel's addressing worked out on the CPU."""
+
+    @pytest.mark.parametrize("shape,block,layout", [
+        (s, b, "contiguous") for s, b in FIELD_CASES] + FIELD_VIEWS)
+    def test_plain_matches_reference(self, ref, shape, block, layout):
+        xt, x = _field_view(shape, layout)
+        jb = ref.dq.block_split(ref.dq.pad_to_blocks(ref.jnp.asarray(x),
+                                                     block), block)
+        jc, jd = ref.lorenzo.dualquant_blocks(jb, 1e-3, NBINS, impl="jax")
+        tc, td = t_lorenzo.dualquant_field(xt, block, 1e-3, NBINS,
+                                           impl="torch")
+        _eq(tc.numpy(), jc, "codes")
+        _eq(td.numpy(), jd, "delta")
+
+    @pytest.mark.parametrize("shape,block,layout", [
+        (s, b, "contiguous") for s, b in FIELD_CASES] + FIELD_VIEWS + [
+        ((3, 2, 17, 17, 9), (1, 1, 8, 8, 8), "contiguous"),
+        ((5, 300), (1, 256), "contiguous"), ((300, 5), (256, 1), "offset"),
+        ((3, 5, 9, 17), (2, 4, 4, 8), "transposed")])
+    def test_kernel_addressing_is_pad_and_split(self, shape, block, layout):
+        """The layout `kernel_layout` gives the kernels (merged leading
+        axes, clamped edges, strides of views) reads exactly the values
+        of `block_split(pad_to_blocks(x))`."""
+        xt, _ = _field_view(shape, layout)
+        want = tdq.block_split(tdq.pad_to_blocks(xt, block), block)
+        got = _addressed(xt, block)
+        assert torch.equal(got, want)
+
+    def test_layout_merges_leading_axes_and_refuses_what_it_cannot_take(
+            self):
+        axes = t_lorenzo.field_axes((3, 2, 17, 17, 9), (5202, 2601, 153, 9,
+                                                         1), (1, 1, 8, 8, 8))
+        grid, inner = t_lorenzo.kernel_layout(axes, (1, 1, 8, 8, 8))
+        assert grid[0] == (6, 2601) and len(grid) == 4
+        assert [a[1] for a in inner] == [-1, 1, 2, 3]
+        with pytest.raises(ValueError, match="four non-unit"):
+            t_lorenzo.kernel_layout(t_lorenzo.field_axes(
+                (4,) * 5, (256, 64, 16, 4, 1), (2,) * 5), (2,) * 5)
+        with pytest.raises(ValueError, match="more than 8"):
+            # nine unit-block axes in reversed strides: none merge
+            t_lorenzo.kernel_layout(t_lorenzo.field_axes(
+                (2,) * 9, tuple(2 ** a for a in range(9)), (1,) * 9),
+                (1,) * 9)
+
+    def test_plain_path_counts_a_host_copy_per_call(self):
+        k = t_lorenzo.DUALQUANT
+        x = torch.from_numpy(_field((50, 37), 2))
+        before, launches = k.host_copies, k.launches
+        for i in range(3):
+            t_lorenzo.dualquant_field(x, (16, 16), 1e-3, NBINS)
+            assert k.host_copies == before + i + 1
+        xb = tdq.block_split(tdq.pad_to_blocks(x, (16, 16)), (16, 16))
+        t_lorenzo.dualquant_blocks(xb, 1e-3, NBINS)
+        assert k.host_copies == before + 3 and k.launches == launches
+
+    @pytest.mark.parametrize("shape,block", [
+        ((256 * 21 + 3,), None), ((40, 3600), None), ((9, 17, 20), None),
+        ((2, 17, 17, 9), None), ((9, 20, 130), (8, 16, 128))])
+    def test_predict_matches_the_old_composition(self, shape, block):
+        """`LorenzoPredictor.predict` through the field entry gives the
+        codes and the outlier store that pad + split + `dualquant_blocks`
+        + `extract_outliers` gave."""
+        from repro_torch.core import compressor as tcz
+        from repro_torch.core import stages as tst
+        from repro_torch.kernels import dispatch as tdisp
+
+        cfg = tcz.CompressorConfig(eb=1e-3, eb_mode="abs", block=block,
+                                   outlier_frac=0.01)
+        x = torch.from_numpy(_field(shape, 8, 10.0))
+        pp = tdisp.pipeline_policy(x.device, "torch")
+        codes, pay = tst.get_predictor("lorenzo").predict(x, cfg, 1e-3, pp)
+        blk = cfg.block_for(len(shape))
+        xb = tdq.block_split(tdq.pad_to_blocks(x, blk), blk)
+        oc, od = t_lorenzo.dualquant_blocks(xb, 1e-3, cfg.nbins)
+        cap = tst.shape_meta(shape, cfg)[4]
+        oi, ov, on = tdq.extract_outliers(od.reshape(-1),
+                                          (oc != 0).reshape(-1), cap)
+        assert torch.equal(codes, oc)
+        assert torch.equal(pay["out_idx"], oi)
+        assert torch.equal(pay["out_val"], ov)
+        assert int(pay["n_outliers"]) == int(on) > 0
+
+
 class TestOutliers:
     @pytest.mark.parametrize("capacity", [16, 300, 5000])
     def test_extract_outliers_matches_reference(self, ref, capacity):
@@ -492,8 +654,9 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("block", DEFAULT_BLOCKS)
     def test_reverse_unaligned_view(self, cuda_dev, block, direction):
         """A contiguous view that starts 4 B into its storage cannot take
-        the 16 B loads of the warp-per-block kernels; in either direction
-        it takes the generic kernel and gives the same bits."""
+        16 B loads: the reverse takes the generic kernel, dual-quant the
+        scalar loads of its warp-per-block kernels, and both give the
+        same bits."""
         size = int(np.prod(block))
         shape = (11,) + (1,) * (len(block) - 1) + block
         rng = np.random.default_rng(4)
@@ -514,6 +677,78 @@ class TestKernelsOnCard:
             pc, pd = t_lorenzo.dualquant_blocks(xb, 1e-3, NBINS,
                                                 impl="torch")
             assert torch.equal(kc, pc) and torch.equal(kd, pd)
+
+    @pytest.mark.parametrize("shape,block,layout", [
+        (s, b, "contiguous") for s, b in FIELD_CASES] + FIELD_VIEWS)
+    def test_dualquant_field(self, cuda_dev, shape, block, layout):
+        """The field entry reads the field in place, ragged edges and
+        views included, with no host copy, and gives the bits of the
+        plain pad + block split + dual-quant."""
+        xt, _ = _field_view(shape, layout, device=cuda_dev)
+        copies = t_lorenzo.DUALQUANT.host_copies
+        kc, kd = t_lorenzo.dualquant_field(xt, block, 1e-3, NBINS,
+                                           impl="cuda")
+        assert t_lorenzo.DUALQUANT.host_copies == copies
+        xb = tdq.block_split(tdq.pad_to_blocks(xt, block), block)
+        pc, pd = t_lorenzo.ref.dualquant_blocks_ref(xb, 1e-3, NBINS)
+        assert torch.equal(kc, pc) and torch.equal(kd, pd)
+
+    @pytest.mark.parametrize("shape,block,step", [
+        ((256 * 8,), (256,), 2), ((48, 32), (16, 16), 1),
+        ((48, 32), (16, 16), 2), ((16, 24, 32), (8, 8, 8), 1),
+        ((16, 24, 32), (8, 8, 8), 2), ((16, 32, 256), (8, 16, 128), 1)])
+    def test_dualquant_blocks_strided_view(self, cuda_dev, shape, block,
+                                           step):
+        """The blocked entry reads a blocked view in its own strides: the
+        field's permuted view [nb..., b...] (no copy), of every `step`-th
+        value along the last axis, gives the bits of its contiguous
+        copy."""
+        wide = shape[:-1] + (shape[-1] * step,)
+        x = torch.from_numpy(_field(wide, 9, 10.0)).to(cuda_dev)
+        split = []
+        for d, b in zip(shape, block):
+            split += [d // b, b]
+        nd = len(shape)
+        view = x[..., ::step].reshape(split).permute(
+            list(range(0, 2 * nd, 2)) + list(range(1, 2 * nd, 2)))
+        assert not view.is_contiguous()
+        kc, kd = t_lorenzo.dualquant_blocks(view, 1e-3, NBINS, impl="cuda")
+        pc, pd = t_lorenzo.dualquant_blocks(view.contiguous(), 1e-3, NBINS,
+                                            impl="torch")
+        assert torch.equal(kc, pc) and torch.equal(kd, pd)
+
+    @pytest.mark.parametrize("shape,block", [
+        ((256 * 21 + 3,), None), ((40, 3600), None), ((9, 17, 20), None),
+        ((2, 17, 17, 9), None), ((9000,), (4096,)), ((70, 130), (64, 128)),
+        ((9, 20, 130), (8, 16, 128))])
+    def test_predict_makes_no_host_copy(self, cuda_dev, monkeypatch, shape,
+                                        block):
+        """On the card `LorenzoPredictor.predict` calls neither
+        `pad_to_blocks` nor `block_split`, for the default and the TPU
+        blocks, and gives the plain path's codes and outlier store."""
+        from repro_torch.core import compressor as tcz
+        from repro_torch.core import stages as tst
+        from repro_torch.kernels import dispatch as tdisp
+
+        cfg = tcz.CompressorConfig(eb=1e-3, eb_mode="abs", block=block,
+                                   outlier_frac=0.01)
+        x = torch.from_numpy(_field(shape, 8, 10.0)).to(cuda_dev)
+        pred = tst.get_predictor("lorenzo")
+        want = pred.predict(x, cfg, 1e-3,
+                            tdisp.pipeline_policy(x.device, "torch"))
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("predict copied the field on the host")
+
+        monkeypatch.setattr(tdq, "pad_to_blocks", refuse)
+        monkeypatch.setattr(tdq, "block_split", refuse)
+        copies = t_lorenzo.DUALQUANT.host_copies
+        got = pred.predict(x, cfg, 1e-3,
+                           tdisp.pipeline_policy(x.device, "cuda"))
+        assert t_lorenzo.DUALQUANT.host_copies == copies
+        assert torch.equal(got[0], want[0])
+        for key in ("out_idx", "out_val", "n_outliers"):
+            assert torch.equal(got[1][key], want[1][key]), key
 
     @pytest.mark.parametrize("n,nbins", [(1, 1024), (777, 256),
                                          (300_001, 1024)])
