@@ -19,9 +19,10 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.lorenzo.ref import _shift1, inv_two_eb, two_eb
+from repro_torch.kernels.lorenzo.ref import _shift1, inv_two_eb
 
 # Paper defaults (§3.1.1).
 DEFAULT_BLOCKS = {1: (256,), 2: (16, 16), 3: (8, 8, 8)}
@@ -37,14 +38,18 @@ def prequant(data: torch.Tensor, eb: float) -> torch.Tensor:
     f32 multiply by f32(1) / f32(2·eb) (XLA's form of the division by a
     compile-time constant), then round-half-to-even.  An IEEE division
     differs on a few rint ties per field."""
-    r = torch.tensor(inv_two_eb(eb), dtype=torch.float32, device=data.device)
-    return torch.round(data.to(torch.float32) * r).to(torch.int32)
+    # a host scalar, not a 0-d tensor on the device: a tensor made from a
+    # host float is a pageable copy, which waits for the stream to drain;
+    # the f32 multiply is the same either way
+    return torch.round(data.to(torch.float32) * inv_two_eb(eb)
+                       ).to(torch.int32)
 
 
 def dequant(q: torch.Tensor, eb: float,
             dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Inverse of PREQUANT: d• = d° · f32(2·eb)."""
-    return (q.to(torch.float32) * two_eb(eb, q.device)).to(dtype)
+    """Inverse of PREQUANT: d• = d° · f32(2·eb).  The factor is a host
+    scalar holding f32(2·eb), as in `prequant`."""
+    return (q.to(torch.float32) * float(np.float32(2.0 * eb))).to(dtype)
 
 
 def lorenzo_delta(q: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
@@ -186,3 +191,21 @@ def scatter_outliers(delta_flat: torch.Tensor, idx: torch.Tensor,
     # capacity: one count read per decode
     delta_flat[idx[keep].long()] = val[keep].to(delta_flat.dtype)
     return delta_flat
+
+
+def outlier_deltas(codes: torch.Tensor, cap: int, idx: torch.Tensor,
+                   val: torch.Tensor) -> torch.Tensor:
+    """`scatter_outliers(codes_to_delta(codes, cap), idx, val)` with no
+    read on the host, so the host can run ahead of the card.  The deltas
+    fill the head of a buffer with one spare slot per capacity entry;
+    each index outside [0, n) (the fill) writes its own spare slot, and
+    the result is the head, a view of n values."""
+    n, c = codes.shape[0], idx.shape[0]
+    buf = torch.empty(n + c, dtype=torch.int32, device=codes.device)
+    delta = buf[:n]
+    c32 = codes.to(torch.int32)
+    torch.sub(c32, cap // 2, out=delta).masked_fill_(c32 == 0, 0)
+    spare = torch.arange(n, n + c, device=idx.device)
+    buf[torch.where((idx >= 0) & (idx < n), idx.long(), spare)] = \
+        val.to(torch.int32)
+    return delta

@@ -27,12 +27,17 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.interp import ops as interp_ops
+from repro_torch.perf.trace import span
 
 from . import dualquant as dq
 from . import stages
 
 #: stop splitting once every dim is at most this (the anchor grid)
 ANCHOR = 4
+#: the span around the level loop of `predict` and of `reconstruct`: one
+#: per field, so the loop's torch copies can be told apart from the rest
+#: of `stage.predict` / `stage.reconstruct` in a trace
+LEVELS_SPAN = "stage.interp.levels"
 
 
 @functools.lru_cache(maxsize=512)
@@ -97,14 +102,15 @@ class InterpPredictor(stages.Predictor):
         impl = pp.for_kernel("interp.predict")
         x = dq.prequant(data, eb)
         parts = []
-        for axis, _ in steps:
-            xm = torch.movedim(x, axis, -1)
-            even, odd = xm[..., 0::2], xm[..., 1::2]
-            e2 = even.reshape(-1, even.shape[-1])
-            o2 = odd.reshape(-1, odd.shape[-1]).contiguous()
-            r2 = interp_ops.residual_rows(_pad_even(e2), o2, impl=impl)
-            parts.append(r2.reshape(-1))
-            x = torch.movedim(even, -1, axis)
+        with span(LEVELS_SPAN):
+            for axis, _ in steps:
+                xm = torch.movedim(x, axis, -1)
+                even, odd = xm[..., 0::2], xm[..., 1::2]
+                e2 = even.reshape(-1, even.shape[-1])
+                o2 = odd.reshape(-1, odd.shape[-1]).contiguous()
+                r2 = interp_ops.residual_rows(_pad_even(e2), o2, impl=impl)
+                parts.append(r2.reshape(-1))
+                x = torch.movedim(even, -1, axis)
         if parts:
             resid = torch.cat(parts)
         else:
@@ -121,10 +127,11 @@ class InterpPredictor(stages.Predictor):
     def reconstruct(self, codes_flat, payload, cfg, eb, shape, pp):
         steps, anchor_shape = interp_plan(tuple(shape))
         impl = pp.for_kernel("interp.reconstruct")
-        delta = dq.codes_to_delta(codes_flat[:self.n_codes(shape, cfg)],
-                                  cfg.nbins)
-        delta = dq.scatter_outliers(delta, payload["out_idx"],
-                                    payload["out_val"])
+        # nothing from here to the return reads the card, so the host
+        # queues the level loop while the card still works on the deltas
+        delta = dq.outlier_deltas(codes_flat[:self.n_codes(shape, cfg)],
+                                  cfg.nbins, payload["out_idx"],
+                                  payload["out_val"])
         # replay the plan for each step's residual offset and its odd
         # shape in the moved layout
         segs = []
@@ -134,14 +141,15 @@ class InterpPredictor(stages.Predictor):
             segs.append((axis, moved, off))
             off += int(np.prod(moved))
         x = payload["anchor"].reshape(anchor_shape)
-        for axis, odd_shape, off in reversed(segs):
-            em = torch.movedim(x, axis, -1)
-            e2 = em.reshape(-1, em.shape[-1])
-            r2 = delta[off:off + int(np.prod(odd_shape))].reshape(
-                -1, odd_shape[-1])
-            o2 = interp_ops.odd_rows(_pad_even(e2), r2, impl=impl)
-            x = torch.movedim(_interleave(em, o2.reshape(odd_shape)), -1,
-                              axis)
+        with span(LEVELS_SPAN):
+            for axis, odd_shape, off in reversed(segs):
+                em = torch.movedim(x, axis, -1)
+                e2 = em.reshape(-1, em.shape[-1])
+                r2 = delta[off:off + int(np.prod(odd_shape))].reshape(
+                    -1, odd_shape[-1])
+                o2 = interp_ops.odd_rows(_pad_even(e2), r2, impl=impl)
+                x = torch.movedim(_interleave(em, o2.reshape(odd_shape)),
+                                  -1, axis)
         return dq.dequant(x, eb)
 
     def valid(self, payload):

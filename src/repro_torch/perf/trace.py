@@ -26,6 +26,9 @@ Spans are named ``<layer>.<what>``:
                        and the decode table (cached, or built)
   stage.decode         the dispatch policy and the decoder
   stage.reconstruct    the predictor's inverse
+  stage.interp.levels  inside `stage.predict` / `stage.reconstruct` of
+                       the interpolation predictor (cusz-i): its level
+                       loop, one span per field
   dispatch.<kernel>    kernel dispatch + ops: the function that resolves
                        a registered kernel (`dispatch.PIPELINE_STAGES`;
                        one per kernel, two entries for dual-quant) and

@@ -7,12 +7,14 @@ package on the same numpy inputs, with tolerance 0.
     shapes (one long row, one odd column, me = mo + 1), one case against
     the reference's Pallas kernel in interpret mode;
   * the level plan, PREQUANT (the reference's compiled form), dequant and
-    POSTQUANT;
+    POSTQUANT; the decode's deltas without a host read against the two
+    steps they replace;
   * codec level on the six small scidata fields: packed containers
     byte-identical (header included), decodes bit-identical, ratios equal
     BENCH_quality.json's cusz-i rows, containers cross-decode both ways.
 
-The `cuda` tests hold each kernel against its plain version on a card.
+The `cuda` tests hold each kernel against its plain version on a card,
+and hold the predictor's side of a decode to no synchronizing call.
 """
 from __future__ import annotations
 
@@ -185,6 +187,33 @@ class TestPlanAndQuant:
         _eq(tin.numpy(), jin, "in_cap")
 
 
+#: (n, capacity, outliers, a fill that is not n): none, some, a full
+#: capacity, a negative fill, a fill past int32's positives
+OUTLIER_CASES = [(1, 1, 0, None), (3000, 64, 0, None), (3000, 64, 17, None),
+                 (3000, 40, 40, None), (4096, 300, 9, -5),
+                 (4096, 300, 299, 2 ** 31 - 1)]
+
+
+@pytest.mark.parametrize("n,cap,k,odd_fill", OUTLIER_CASES)
+def test_outlier_deltas_equal_scatter(n, cap, k, odd_fill):
+    """The decode's deltas without a host read are the two steps' values,
+    for codes of any integer dtype."""
+    rng = np.random.default_rng(n + cap + k)
+    codes = torch.from_numpy(rng.integers(0, 1024, n).astype(np.int32))
+    idx = np.full(cap, n, np.int32)
+    idx[:k] = rng.choice(n, size=k, replace=False)
+    if odd_fill is not None:
+        idx[-1] = odd_fill
+    idx = torch.from_numpy(idx)
+    val = torch.from_numpy(rng.integers(-10 ** 6, 10 ** 6, cap)
+                           .astype(np.int32))
+    want = tdq.scatter_outliers(tdq.codes_to_delta(codes, 1024), idx, val)
+    for dt in (torch.int32, torch.int64, torch.int16):
+        got = tdq.outlier_deltas(codes.to(dt), 1024, idx, val)
+        assert got.dtype == want.dtype
+        _eq(got.numpy(), want.numpy(), str(dt))
+
+
 # ---------------------------------------------------------------------------
 # Codec level: the six scidata fields
 # ---------------------------------------------------------------------------
@@ -328,6 +357,29 @@ class TestInterpOnCard:
         back = t_interp.odd_rows(pe, k, impl="cuda")
         assert torch.equal(back, t_interp.odd_rows(pe, k, impl="torch"))
         assert torch.equal(back, odd)
+
+    def test_reconstruct_reads_nothing_on_the_host(self, cuda_dev,
+                                                   monkeypatch):
+        """The predictor's side of a decode (deltas, outliers, the level
+        loop, dequant) makes no synchronizing call, so the host runs
+        ahead of the card through it; the decode is unchanged."""
+        plain = tinterp.InterpPredictor.reconstruct
+
+        def strict(self, *args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return plain(self, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        codec = tcodecs.get("cusz-i", eb=1e-4, eb_mode="valrel")
+        f = tsci.all_fields(small=True)["nyx"]
+        c = codec.encode(f, device=cuda_dev)
+        want = tcodecs.decode(c, device=cuda_dev)
+        monkeypatch.setattr(tinterp.InterpPredictor, "reconstruct", strict)
+        got = tcodecs.decode(c, device=cuda_dev)
+        assert int(c.payload["n_outliers"]) > 0
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
     def test_codec_on_card_matches_cpu(self, cuda_dev):
         codec = tcodecs.get("cusz-i", **QUALITY_KW)

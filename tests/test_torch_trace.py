@@ -16,7 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import codecs
-from repro_torch.core import stages
+from repro_torch.core import interp, stages
 from repro_torch.kernels import dispatch
 from repro_torch.perf import trace
 
@@ -91,7 +91,8 @@ def test_spans_nest_codec_stage_dispatch(name, tmp_path):
     (c, _), events = profiled(lambda: roundtrip(name, field()), tmp_path)
     enc, dec = named(events, "codec.encode"), named(events, "codec.decode")
     assert len(enc) == 1 and len(dec) == 1
-    got_stages = named(events, "stage.")
+    got_stages = [e for e in named(events, "stage.")
+                  if e["name"] != interp.LEVELS_SPAN]
     assert sorted(e["name"] for e in got_stages) == sorted(
         COMPRESS_STAGES + DECOMPRESS_STAGES)
     for e in got_stages:
@@ -104,6 +105,25 @@ def test_spans_nest_codec_stage_dispatch(name, tmp_path):
     assert {e["name"] for e in got} == {f"dispatch.{k}" for k in want}
     for e in got:
         assert any(inside(e, s) for s in got_stages), e["name"]
+
+
+@pytest.mark.parametrize("name", CODECS)
+def test_interp_level_loop_span_per_field(name, tmp_path):
+    """One `stage.interp.levels` span in each encode and each decode of
+    an interpolation-predicted field, inside `stage.predict` and
+    `stage.reconstruct`; none for the Lorenzo codecs."""
+    _, events = profiled(lambda: roundtrip(name, field()), tmp_path)
+    levels = sorted(named(events, interp.LEVELS_SPAN),
+                    key=lambda e: e["ts"])
+    if codecs.get(name).cfg.predictor != "interp":
+        assert levels == []
+        return
+    assert len(levels) == 2
+    (predict,), (reconstruct,) = (named(events, "stage.predict"),
+                                  named(events, "stage.reconstruct"))
+    assert inside(levels[0], predict) and inside(levels[1], reconstruct)
+    for e in named(events, "dispatch.interp."):
+        assert any(inside(e, lv) for lv in levels), e["name"]
 
 
 def test_decode_table_spans_count_the_builds(tmp_path):
